@@ -1,0 +1,11 @@
+"""Skyrise serverless query engine on PyTorch (paper §3.2): a
+shared-storage engine whose coordinator and workers are stateless tasks
+communicating only through the object store, runnable in 'elastic'
+(FaaS) or 'provisioned' (IaaS) mode with identical physical plans.
+
+Author queries with the logical builder (``engine.logical``), lower them
+with ``engine.optimizer`` or hand them to ``engine.coordinator.
+Coordinator.run``. Execution runs on the ``torch`` backend on
+``device="cuda"`` by default; ``backend="numpy"`` selects the
+interpreted float64 semantic reference.
+"""
