@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the query engine on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the query engine and
+LLM serving.
 
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit (``nvcc``). Phases, each printing one line of its numbers:
+toolkit (``nvcc``). Phases, each printing lines of its numbers:
 
 1. build  — compile the hand-written kernels under
    ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all at once);
@@ -19,10 +20,23 @@ toolkit (``nvcc``). Phases, each printing one line of its numbers:
 4. profile — each warm query's device busy time and each kernel's own
    device time (``torch.profiler``), and its heaviest host functions
    (``cProfile``);
-5. kernels — each kernel's wrapper against its plain PyTorch version on
-   the card at the shapes the queries gave it, timed with CUDA events
-   (median and spread of five batches) beside its bandwidth bound, the
-   plain version and one PyTorch library call.
+5. kernels — each query kernel's wrapper against its plain PyTorch
+   version on the card at the shapes the queries gave it, timed with CUDA
+   events (median and spread of five batches) beside its bound, the plain
+   version and one PyTorch library call;
+6. serve  — ``ServingEngine`` with RecurrentGemma-2B at full width and
+   depth (random bf16 weights from a seeded ``torch.Generator``) answers
+   8 requests of 1,024-4,096 prompt tokens and 32 new tokens each, in two
+   batches of 4; the flash attention and RG-LRU kernels must launch once
+   per ``local`` / ``rec`` layer and batch. The first batch's prefill is
+   then run again on the reference route (``impl="reference"``) and its
+   last-token logits held against the kernel route's; three planted
+   faults show what that check can see; one prefill and one decode step
+   are profiled;
+7. model kernels — flash attention and the RG-LRU scan against their
+   plain versions at the serving path's shapes (and InternLM2's attention
+   shape and a strong-decay scan), timed as in phase 5; attention also
+   in float32, where a window edge off by one must show.
 
 Ends with the card's name and power limit, a ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``. Any mismatch or exception exits
@@ -43,6 +57,25 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 RTOL = 1e-6
 QUERIES = ("q1", "q6", "q12", "dup_key_join")
+PHASES = ("queries", "serve")     # a quick call may run only some
+
+# The serving phase: RecurrentGemma-2B, full width and depth.
+SERVE_ARCH = "recurrentgemma-2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN = 4, 4096, 4128
+SERVE_MIN_PROMPT = 1024           # prompt lengths drawn in [1024, 4096]
+SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_SEED = 8, 32, 0
+# InternLM2-1.8B's attention at a 4096-token prefill: (B, S, H, D), Hkv.
+INTERNLM2_ATTN = ((1, 4096, 16, 128), 8)
+# Largest |flash - reference| last-token logit allowed (reason in PERF.md).
+LOGIT_TOL = 0.35
+BF16_TOL, SCAN_TOL = 2e-2, 1e-5   # rtol = atol, as in the CPU tests
+# Attention on the same inputs widened to float32: the float32 kernel
+# against the float32 plain version within F32_ATTN_TOL, and the bf16
+# kernel against that same float32 result within one rounding to bf16
+# (half an ulp, at most BF16_ROUND of the value) plus F32_ATTN_TOL.
+F32_ATTN_TOL = 1e-4
+BF16_ROUND = 2.0 ** -8
+BF16_FLOPS_PER_S = 989e12         # H100 SXM dense bf16 (NVIDIA data sheet)
 
 
 def log(phase: str, **fields) -> None:
@@ -131,6 +164,29 @@ class Recorder:
         setattr(self.module, self.name, self.orig)
 
 
+def launch_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hash_join as hj
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import segment_reduce as sr
+    return {"probe": hj.PROBE_LAUNCHES,
+            "probe_range": hj.PROBE_RANGE_LAUNCHES,
+            "segment_reduce": sr.SEGMENT_REDUCE_LAUNCHES,
+            "flash_attention": fa.FLASH_ATTENTION_LAUNCHES,
+            "rglru_scan": rg.RGLRU_SCAN_LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hash_join as hj
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import segment_reduce as sr
+    hj.PROBE_LAUNCHES = hj.PROBE_RANGE_LAUNCHES = 0
+    sr.SEGMENT_REDUCE_LAUNCHES = 0
+    fa.FLASH_ATTENTION_LAUNCHES = 0
+    rg.RGLRU_SCAN_LAUNCHES = 0
+
+
 def run_queries(store, keys):
     import torch
     from repro_torch.engine import compile as tc
@@ -145,8 +201,7 @@ def run_queries(store, keys):
             c.register_table(t, k)
         coords[backend] = c
     # The main path: every count at 0 just before, read just after.
-    hj.PROBE_LAUNCHES = hj.PROBE_RANGE_LAUNCHES = 0
-    sr.SEGMENT_REDUCE_LAUNCHES = 0
+    reset_launch_counts()
     for k in tc.FALLBACK_STATS:
         tc.FALLBACK_STATS[k] = 0
     results, walls = {}, {}
@@ -176,9 +231,8 @@ def run_queries(store, keys):
     finally:
         for r in recorders.values():
             r.restore()
-    launches = {"probe": hj.PROBE_LAUNCHES,
-                "probe_range": hj.PROBE_RANGE_LAUNCHES,
-                "segment_reduce": sr.SEGMENT_REDUCE_LAUNCHES}
+    launches = {k: n for k, n in launch_counts().items()
+                if k in ("probe", "probe_range", "segment_reduce")}
     fallbacks = dict(tc.FALLBACK_STATS)
     for name in QUERIES:
         t0 = time.perf_counter()
@@ -203,7 +257,9 @@ def run_queries(store, keys):
 # them (``probe_range_kernel`` first: it also ends in ``_kernel``).
 OWN_KERNELS = (("probe_range", "probe_range_kernel"),
                ("probe", "probe_kernel"),
-               ("segment_reduce", "segment_reduce_pass"))
+               ("segment_reduce", "segment_reduce_pass"),
+               ("flash_attention", "flash_attention_kernel"),
+               ("rglru_scan", "rglru_scan_kernel"))
 
 
 def own_kernel(key: str):
@@ -211,6 +267,40 @@ def own_kernel(key: str):
         if symbol in key:
             return name
     return None
+
+
+def device_summary(prof, wall_s: float) -> dict:
+    """Device kernel and copy time of a ``torch.profiler`` run, each of
+    the port's kernels' launches and own device time, and the device's
+    idle share of ``wall_s``."""
+    from torch.autograd import DeviceType
+    kernel_us = copy_us = 0.0
+    kernel_n = 0
+    own = {kname: [0, 0.0] for kname, _ in OWN_KERNELS}
+    top = []
+    for evt in prof.key_averages():
+        # Only the device's own events: a CPU operator's self device
+        # time repeats the time of the kernels it launched.
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        if "Memcpy" in evt.key or "Memset" in evt.key:
+            copy_us += evt.self_device_time_total
+        else:
+            kernel_us += evt.self_device_time_total
+            kernel_n += evt.count
+            top.append((evt.self_device_time_total / 1e6, evt.count,
+                        evt.key[:80]))
+            kname = own_kernel(evt.key)
+            if kname is not None:
+                own[kname][0] += evt.count
+                own[kname][1] += evt.self_device_time_total / 1e6
+    top.sort(reverse=True)
+    return {"device_kernel_s": kernel_us / 1e6, "device_kernels": kernel_n,
+            "device_copy_s": copy_us / 1e6,
+            "own_kernels": {k: {"launches": n, "device_s": t}
+                            for k, (n, t) in own.items() if n},
+            "device_idle_share": 1.0 - (kernel_us + copy_us) / 1e6 / wall_s,
+            "top_device_kernels_s": [list(t) for t in top[:6]]}
 
 
 def profile_queries(store, keys, walls):
@@ -221,7 +311,6 @@ def profile_queries(store, keys, walls):
     import cProfile
     import pstats
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine.coordinator import Coordinator
     c = Coordinator(store, backend="torch", device=DEVICE)
@@ -232,23 +321,6 @@ def profile_queries(store, keys, walls):
                                  ProfilerActivity.CUDA]) as prof:
             c.execute(plan_for(name), query_id=f"{name}-prof")
             torch.cuda.synchronize()
-        kernel_us = copy_us = 0.0
-        kernel_n = 0
-        own = {kname: [0, 0.0] for kname, _ in OWN_KERNELS}
-        for evt in prof.key_averages():
-            # Only the device's own events: a CPU operator's self device
-            # time repeats the time of the kernels it launched.
-            if evt.device_type != DeviceType.CUDA:
-                continue
-            if "Memcpy" in evt.key or "Memset" in evt.key:
-                copy_us += evt.self_device_time_total
-            else:
-                kernel_us += evt.self_device_time_total
-                kernel_n += evt.count
-                kname = own_kernel(evt.key)
-                if kname is not None:
-                    own[kname][0] += evt.count
-                    own[kname][1] += evt.self_device_time_total / 1e6
         pr = cProfile.Profile()
         pr.enable()
         c.execute(plan_for(name), query_id=f"{name}-cprof")
@@ -257,13 +329,9 @@ def profile_queries(store, keys, walls):
         st = pstats.Stats(pr)
         top = sorted(st.stats.items(), key=lambda kv: kv[1][2],
                      reverse=True)[:8]
-        wall = walls[name]
-        log("profile", name=name, warm_wall_s=wall,
-            device_kernel_s=kernel_us / 1e6, device_kernels=kernel_n,
-            device_copy_s=copy_us / 1e6,
-            own_kernels={k: {"launches": n, "device_s": t}
-                         for k, (n, t) in own.items() if n},
-            device_idle_share=1.0 - (kernel_us + copy_us) / 1e6 / wall,
+        summary = device_summary(prof, walls[name])
+        summary.pop("top_device_kernels_s")
+        log("profile", name=name, warm_wall_s=walls[name], **summary,
             host_top_self_s=[[f"{pathlib.Path(f).name}:{ln}:{fn}", v[2]]
                              for (f, ln, fn), v in top])
 
@@ -432,6 +500,373 @@ def check_segment_reduce(recorded, launches):
 
 
 # ---------------------------------------------------------------------------
+# LLM serving: RecurrentGemma-2B through ServingEngine
+# ---------------------------------------------------------------------------
+
+class Timed:
+    """Wraps a step function: host seconds of each call, the device
+    synchronised on both sides."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def serve_requests(vocab: int):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(SERVE_SEED)
+    lengths = rng.integers(SERVE_MIN_PROMPT, SERVE_PROMPT + 1,
+                           SERVE_REQUESTS)
+    return [Request(i, rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=SERVE_NEW_TOKENS)
+            for i, n in enumerate(lengths)]
+
+
+def run_serving():
+    """The serving main path: build the engine, answer the requests,
+    read the launch counts of ``serve`` alone."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServingEngine
+    cfg = ARCHS[SERVE_ARCH]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN,
+                        seed=SERVE_SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kinds = [layer.kind for layer in eng.model.layers]
+    log("serve_init", arch=cfg.name, seconds=init_s,
+        parameters=tfm.param_count(eng.model),
+        parameter_bytes=sum(p.numel() * p.element_size()
+                            for p in eng.model.parameters()),
+        dtype=str(cfg.activation_dtype), layers=len(kinds),
+        rec_layers=kinds.count("rec"), local_layers=kinds.count("local"),
+        impl="flash")
+    reqs = serve_requests(cfg.vocab_size)
+    prefill, decode = Timed(eng.prefill), Timed(eng.decode)
+    eng.prefill, eng.decode = prefill, decode
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()                      # the main path: counts at 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()                 # ... read just after
+    peak = torch.cuda.max_memory_allocated()
+    eng.prefill, eng.decode = prefill.fn, decode.fn
+    for r in done:
+        c = r.completion
+        if c is None or c.shape != (SERVE_NEW_TOKENS,) or c.min() < 0 \
+                or c.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {r.request_id}: bad completion "
+                                 f"{c}")
+    if sorted(r.request_id for r in done) != list(range(SERVE_REQUESTS)):
+        raise AssertionError("not every request was answered")
+    batches = -(-SERVE_REQUESTS // SERVE_BATCH)
+    dec = sorted(decode.seconds)
+    new_tokens = sum(len(r.completion) for r in done)
+    log("serve_requests", requests=SERVE_REQUESTS, batches=batches,
+        prompt_tokens=[len(r.prompt) for r in reqs],
+        padded_prompt_tokens=SERVE_PROMPT, new_tokens=new_tokens,
+        wall_s=wall, latency_s=[r.latency_s for r in done])
+    log("serve_prefill", seconds_per_batch=prefill.seconds,
+        prefill_tokens_per_s=[SERVE_BATCH * SERVE_PROMPT / t
+                              for t in prefill.seconds])
+    log("serve_decode", steps=len(dec), step_ms_median=dec[len(dec) // 2]
+        * 1e3, step_ms_min=dec[0] * 1e3, step_ms_max=dec[-1] * 1e3,
+        step_ms_p90=dec[int(0.9 * (len(dec) - 1))] * 1e3)
+    log("serve_throughput", new_tokens_per_s=new_tokens / wall,
+        requests_per_s=SERVE_REQUESTS / wall)
+    log("serve_memory", max_memory_allocated=peak,
+        max_memory_allocated_gib=peak / 2**30)
+    log("serve_launches", **launches)
+    log("serve_cost", **eng.cost_report(wall, len(done)))
+    want = {"flash_attention": kinds.count("local") * batches,
+            "rglru_scan": kinds.count("rec") * batches}
+    for k, n in want.items():
+        if launches[k] == 0 or launches[k] != n:
+            raise AssertionError(f"{k} launched {launches[k]} times in "
+                                 f"serve, expected {n}")
+    if any(launches[k] for k in launches if k not in want):
+        raise AssertionError(f"query kernels launched in serve: {launches}")
+    first = np.asarray([r.completion[0] for r in done[:SERVE_BATCH]])
+    return eng, reqs, launches, first
+
+
+def check_serving_reference(eng, reqs, first_tokens):
+    """The first batch's prefill again on the kernel route (keeping each
+    kernel's inputs) and on the reference route: last-token logits within
+    ``LOGIT_TOL``, and the same first greedy token wherever the
+    reference's top-1/top-2 gap exceeds twice the largest difference."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.launch.steps import make_prefill_step
+    toks = eng._batch_prompts(reqs[:SERVE_BATCH])
+    recorders = {"flash_attention": Recorder(fa, "flash_attention",
+                                             lambda a: a[0].numel()),
+                 "rglru_scan": Recorder(rg, "rglru_scan",
+                                        lambda a: a[0].numel())}
+    try:
+        flash_logits, _ = eng.prefill(eng.model, {"tokens": toks})
+        torch.cuda.synchronize()
+    finally:
+        for r in recorders.values():
+            r.restore()
+    ref_step = make_prefill_step(eng.cfg, cache_len=SERVE_MAX_LEN,
+                                 impl="reference")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_logits, _ = ref_step(eng.model, {"tokens": toks})
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    diff = float((flash_logits - ref_logits).abs().max())
+    top2 = ref_logits.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    tok_f = flash_logits.argmax(-1).cpu().numpy()
+    tok_r = ref_logits.argmax(-1).cpu().numpy()
+    decided = gap > 2 * diff
+    log("serve_reference", max_abs_logit_diff=diff, tolerance=LOGIT_TOL,
+        logit_std=float(ref_logits.std()),
+        first_token_flash=tok_f.tolist(), first_token_reference=tok_r.tolist(),
+        first_token_served=first_tokens.tolist(),
+        top1_top2_gap=gap.tolist(), decided=decided.tolist(),
+        reference_prefill_s=ref_s)
+    if not (torch.isfinite(flash_logits).all()
+            and torch.isfinite(ref_logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    if flash_logits.shape != (SERVE_BATCH, eng.cfg.vocab_size):
+        raise AssertionError(f"logits shape {tuple(flash_logits.shape)}")
+    if not diff <= LOGIT_TOL:
+        raise AssertionError(f"flash vs reference logits differ by {diff} "
+                             f"> {LOGIT_TOL}")
+    if np.any(decided & (tok_f != tok_r)):
+        raise AssertionError("the first greedy token differs where the "
+                             "reference's margin decides it")
+    log_controls(eng, toks, flash_logits, ref_logits)
+    return {k: r.args for k, r in recorders.items()}, toks
+
+
+def log_controls(eng, toks, flash_logits, ref_logits):
+    """What the logit check sees of a fault: the kernel route's prefill
+    with the window edge one key wider, with the window dropped, and with
+    the scan's decays rounded to bf16, each held against both routes."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = eng.cfg
+
+    def prefill(c):
+        step = make_prefill_step(c, cache_len=SERVE_MAX_LEN, impl="flash")
+        return step(eng.model, {"tokens": toks})[0]
+
+    faulty = {
+        "window_plus_one": prefill(dataclasses.replace(
+            cfg, window=cfg.window + 1)),
+        "no_window": prefill(dataclasses.replace(cfg, window=0))}
+    scan = rg.rglru_scan
+    rg.rglru_scan = lambda la, b, h0: scan(la.to(torch.bfloat16).float(),
+                                           b, h0)
+    try:
+        faulty["bf16_decays"] = prefill(cfg)
+    finally:
+        rg.rglru_scan = scan
+    log("serve_controls", tolerance=LOGIT_TOL, **{
+        name: {"vs_reference": float((x - ref_logits).abs().max()),
+               "vs_kernel_route": float((x - flash_logits).abs().max())}
+        for name, x in faulty.items()})
+
+
+def profile_serving(eng, toks):
+    """One prefill and one decode step under ``torch.profiler``: device
+    idle share and each kernel's own device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, caches = eng.prefill(eng.model, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log("serve_profile", step="prefill", wall_s=wall,
+        **device_summary(prof, wall))
+    nxt = logits.argmax(-1).to(torch.int32)[:, None]
+    eng.decode(eng.model, nxt, caches, SERVE_PROMPT)       # warm
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.decode(eng.model, nxt, caches, SERVE_PROMPT + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log("serve_profile", step="decode", wall_s=wall,
+        **device_summary(prof, wall))
+
+
+def within(got, want, tol) -> float:
+    """Max |got - want|; raises unless |got - want| <= tol + tol*|want|
+    everywhere (and both are finite)."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()
+            and (err <= tol + tol * w.abs()).all()):
+        raise AssertionError(f"kernel vs plain: max |diff| "
+                             f"{float(err.max())} beyond tol {tol}")
+    return float(err.max())
+
+
+def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs inside the causal / window band."""
+    total = 0
+    for qp in range(sq):
+        hi = min(skv, qp + 1) if causal else skv
+        lo = max(0, qp - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def check_flash(recorded, launches):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    (q, k, v), kw = recorded["flash_attention"]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    bf16 = dict(dtype=torch.bfloat16, device=DEVICE, generator=gen)
+    (ib, isq, ih, idh), ihkv = INTERNLM2_ATTN
+    cases = [("serve", q, k, v, kw.get("causal", True), kw.get("window", 0)),
+             ("internlm2_shape", torch.randn((ib, isq, ih, idh), **bf16),
+              torch.randn((ib, isq, ihkv, idh), **bf16),
+              torch.randn((ib, isq, ihkv, idh), **bf16), True, 0)]
+    rows = []
+    for case, q, k, v, causal, window in cases:
+        b, sq, h, d = q.shape
+        skv = k.shape[1]
+        kern = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                          window=window)
+        plain = lambda: fa.flash_attention_plain(  # noqa: E731
+            q, k, v, causal=causal, window=window)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window:
+            qp = torch.arange(sq, device=DEVICE)[:, None]
+            kp = torch.arange(skv, device=DEVICE)[None, :]
+            band = (kp <= qp) & (kp > qp - window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = within(got, want, BF16_TOL)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        tight = check_flash_f32(q, k, v, got, causal, window)
+        pairs = band_pairs(sq, skv, causal, window)
+        flops = 4.0 * b * h * d * pairs
+        nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) \
+            * q.element_size()
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, bound_ms(nbytes)
+        row = {"name": "flash_attention", "route": "cuda",
+               "source": "src/repro_torch/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:22",
+               "launches": launches["flash_attention"], "max_abs_err": err,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               **kernel_times(kern, plain, lib)}
+        log("kernel" if case == "serve" else "kernel_sweep", **row,
+            case=case, shape=[b, sq, h, d], kv_heads=k.shape[2],
+            causal=causal, window=window, band_pairs=pairs,
+            flops=flops, bytes=nbytes, library_max_abs_err=lib_err,
+            tflops_per_s=flops / row["ms"] / 1e9, **tight)
+        if case == "serve":
+            rows.append({key: row[key] for key in ROW_KEYS})
+    return rows
+
+
+def check_flash_f32(q, k, v, got, causal, window) -> dict:
+    """The kernel in float32 on q, k, v widened (exactly) to float32,
+    against the plain version in float32, and the bf16 result ``got``
+    against that float32 result; for a window, what the same comparison
+    reads when the window edge is one key off."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = fa.flash_attention_plain(qf, kf, vf, causal=causal, window=window)
+    f32 = fa.flash_attention(qf, kf, vf, causal=causal, window=window)
+    f32_err = float((f32 - want).abs().max())
+    del f32
+    err = (got.float() - want).abs()
+    bf16_err = float(err.max())
+    bf16_excess = float((err - BF16_ROUND * want.abs()).max())
+    del err
+    out = {"f32_max_abs_err": f32_err, "f32_tol": F32_ATTN_TOL,
+           "bf16_vs_f32_max_abs_err": bf16_err,
+           "bf16_vs_f32_excess_over_rounding": bf16_excess,
+           "output_rms": float(want.square().mean().sqrt())}
+    if window:
+        off = fa.flash_attention_plain(qf, kf, vf, causal=causal,
+                                       window=window + 1)
+        out["control_window_plus_one_max_abs_diff"] = float(
+            (off - want).abs().max())
+        del off
+    torch.cuda.synchronize()
+    if not (f32_err <= F32_ATTN_TOL and bf16_excess <= F32_ATTN_TOL):
+        raise AssertionError(f"flash attention against float32: {out}")
+    return out
+
+
+def check_rglru(recorded, launches):
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    (log_a, b_in, h0), _ = recorded["rglru_scan"]
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    f32 = dict(dtype=torch.float32, device=DEVICE, generator=gen)
+    cases = [("serve", log_a, b_in, h0),
+             ("strong_decay", torch.full_like(log_a, -40.0),
+              torch.randn(log_a.shape, **f32), torch.full_like(h0, 1e6))]
+    rows = []
+    for case, la, bb, hh in cases:
+        b, s, w = la.shape
+        kern = lambda: rg.rglru_scan(la, bb, hh)  # noqa: E731
+        plain = lambda: rg.rglru_scan_plain(la, bb, hh)  # noqa: E731
+        (g_all, g_last), (w_all, w_last) = kern(), plain()
+        torch.cuda.synchronize()
+        err = max(within(g_all, w_all, SCAN_TOL),
+                  within(g_last, w_last, SCAN_TOL))
+        per = time_spread(kern)
+        row = {"name": "rglru_scan", "route": "cuda",
+               "source": "src/repro_torch/csrc/rglru_scan.cu",
+               "replaces": "src/repro/kernels/rglru_scan.py:21",
+               "launches": launches["rglru_scan"], "max_abs_err": err,
+               "ms": per[len(per) // 2], "ms_min": per[0],
+               "ms_max": per[-1], "plain_ms": time_ms(plain),
+               "bound_ms": bound_ms(4 * (3 * b * s * w + 2 * b * w)),
+               "bound_by": "bytes", "library_ms": None}
+        log("kernel" if case == "serve" else "kernel_sweep", **row,
+            case=case, shape=[b, s, w],
+            log_a_range=[float(la.min()), float(la.max())])
+        if case == "serve":
+            rows.append({key: row[key] for key in ROW_KEYS})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -446,6 +881,9 @@ def main() -> int:
     from repro_torch.core.storage_service import ObjectStore
     from repro_torch.engine import datagen
     from repro_torch.kernels import build as kbuild
+    # The port's numbers are compared in full float32 (no TF32).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     report = kbuild.build_all()
@@ -460,19 +898,30 @@ def main() -> int:
     log("device", torch=torch.__version__, cuda=torch.version.cuda,
         name=torch.cuda.get_device_name(0), nvidia_smi=smi)
 
-    t0 = time.perf_counter()
-    store = ObjectStore()
-    keys = {"lineitem": datagen.load_table(store, "lineitem", LINEITEM_ROWS,
-                                           1),
-            "orders": datagen.load_table(store, "orders", ORDERS_ROWS, 1)}
-    log("load", seconds=time.perf_counter() - t0,
-        lineitem_rows=LINEITEM_ROWS, orders_rows=ORDERS_ROWS,
-        stored_mib=store.total_bytes() / 2**20)
-
-    launches, recorded, warm_walls = run_queries(store, keys)
-    profile_queries(store, keys, warm_walls)
-    kernels = check_probes(recorded, launches) \
-        + check_segment_reduce(recorded, launches)
+    kernels = []
+    if "queries" in PHASES:
+        t0 = time.perf_counter()
+        store = ObjectStore()
+        keys = {"lineitem": datagen.load_table(store, "lineitem",
+                                               LINEITEM_ROWS, 1),
+                "orders": datagen.load_table(store, "orders", ORDERS_ROWS,
+                                             1)}
+        log("load", seconds=time.perf_counter() - t0,
+            lineitem_rows=LINEITEM_ROWS, orders_rows=ORDERS_ROWS,
+            stored_mib=store.total_bytes() / 2**20)
+        launches, recorded, warm_walls = run_queries(store, keys)
+        profile_queries(store, keys, warm_walls)
+        kernels += check_probes(recorded, launches) \
+            + check_segment_reduce(recorded, launches)
+        del store, keys, recorded
+    if "serve" in PHASES:
+        eng, reqs, launches, first = run_serving()
+        recorded, toks = check_serving_reference(eng, reqs, first)
+        profile_serving(eng, toks)
+        del eng
+        torch.cuda.empty_cache()
+        kernels += check_flash(recorded, launches) \
+            + check_rglru(recorded, launches)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

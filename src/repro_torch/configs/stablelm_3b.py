@@ -1,0 +1,9 @@
+"""StableLM-3B (hf:stabilityai/stablelm-2-1_6b family): dense, MHA."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="stablelm-3b", family="dense",
+    num_layers=32, d_model=2560, num_heads=32, num_kv_heads=32,
+    head_dim=80, d_ff=6912, vocab_size=50304,
+    rope_theta=10000.0, microbatches=4,
+ block_pattern=("attn",))

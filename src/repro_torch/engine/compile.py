@@ -66,23 +66,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.engine import logical as engine_logical
 from repro_torch.engine import operators
 from repro_torch.engine import plans as engine_plans
 from repro_torch.engine.columnar import ColumnBatch
 from repro_torch.kernels import hash_join as hj_kernel
 from repro_torch.kernels import segment_reduce as sr_kernel
-
-
-def resolve_device(device) -> torch.device:
-    """The torch device for ``device``; raises rather than carry on
-    quietly on the CPU when a CUDA device is asked for and absent."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"torch backend: device {device!r} requested but no CUDA device "
-            "is available (pass device='cpu' to run on the CPU)")
-    return dev
 
 
 # ---------------------------------------------------------------------------

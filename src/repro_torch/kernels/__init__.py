@@ -4,4 +4,10 @@ tensors and runs its plain PyTorch version on CPU tensors:
 
 - hash_join:      bucketed sorted probe and range probe (equi-join)
 - segment_reduce: deterministic pairwise segmented sum/count/min/max
+- flash_attention: causal / sliding-window GQA online-softmax attention,
+  in the model's (B, S, H, D) layout
+- rglru_scan:     the RG-LRU linear recurrence, sequential in time
+
+``ref`` holds the last two's independent plain oracles, which are also
+their plain versions.
 """

@@ -1,0 +1,64 @@
+"""Weight converter: the reference's parameter tree into the port's model.
+
+The reference (``repro.models.transformer.init_model``, values taken with
+``split_tree``) keeps top-level tensors (``embed``, ``ln_f``,
+``lm_head``) and a list of segments, each a dict ``sub{j}`` of parameter
+trees stacked on a leading ``layers`` axis. Its scan runs a segment's
+unit repeat by repeat, so layer order is: for each segment, for each
+repeat r, ``sub0[r], sub1[r], ...``. ``unstack_segments`` walks that
+order; every weight keeps the reference's layout (``wq`` (D, H, Dh) and
+so on), so the conversion is a copy. Takes numpy arrays (convert with
+``np.asarray`` first) and imports nothing of the reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models import transformer as tfm
+
+
+def _index(tree: Any, r: int) -> Any:
+    """``tree`` with every array replaced by its row ``r``."""
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    if isinstance(tree, tuple):          # a cache NamedTuple
+        return type(tree)(*(_index(v, r) for v in tree))
+    return tree[r]
+
+
+def unstack_segments(cfg: ArchConfig, segments: list) -> Iterator[tuple]:
+    """Yield ``(kind, tree)`` per layer in execution order from the
+    reference's stacked segments (parameters or decode caches)."""
+    segs = tfm.compute_segments(cfg)
+    if len(segs) != len(segments):
+        raise ValueError(f"{len(segments)} segments given, the config has "
+                         f"{len(segs)}")
+    for (unit, repeats), seg in zip(segs, segments):
+        for r in range(repeats):
+            for j, kind in enumerate(unit):
+                yield kind, _index(seg[f"sub{j}"], r)
+
+
+def _to_torch(tree: Any, device, dtype: Optional[torch.dtype]) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
+    t = torch.from_numpy(np.array(tree, copy=True)).to(device)
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+
+def from_reference(cfg: ArchConfig, params: dict, *, device="cuda",
+                   dtype: Optional[torch.dtype] = None) -> tfm.Model:
+    """The port's model holding the reference's weights ``params``
+    (numpy arrays) on ``device``, optionally cast to ``dtype``. The
+    default, the card, raises when there is none."""
+    device = resolve_device(device)
+    top = {k: _to_torch(params[k], device, dtype)
+           for k in ("embed", "ln_f", "lm_head") if k in params}
+    layers = [tfm.Layer(kind, _to_torch(tree, device, dtype))
+              for kind, tree in unstack_segments(cfg, params["segments"])]
+    return tfm.Model(top, layers)

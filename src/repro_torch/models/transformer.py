@@ -1,0 +1,270 @@
+"""Model assembly: the decoder as one module per layer, walked by a Python
+loop (the port of ``repro.models.transformer``).
+
+The reference stacks each segment's layers on a leading axis and runs
+them with ``lax.scan``; eager PyTorch needs neither, so the port keeps a
+flat ``nn.ModuleList`` in layer order. ``compute_segments`` stays for the
+weight converter, which unstacks the reference's segments into it.
+
+Entry points: ``forward_prefill`` (last-token logits + caches) and
+``forward_decode`` (one-token step); caches are a list with one entry per
+layer (``KVCache`` or ``RglruState``).
+
+Block kinds ported:
+  attn    — RMSNorm -> GQA attention -> RMSNorm -> SwiGLU
+  local   — same, sliding-window attention (cfg.window)
+  rec     — RG-LRU recurrent block -> SwiGLU
+``moe`` and ``dense0`` wait for the grouped-matmul kernel (ROADMAP B.5),
+``rwkv`` for the RWKV-6 kernel (ROADMAP B.6); ``forward_train`` waits for
+the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models.attention import KVCache
+from repro_torch.models.common import Params, embed_init, ones_init, rms_norm
+
+PORTED_KINDS = ("attn", "local", "rec")
+_WAITING = {"moe": "ROADMAP B.5 (grouped-matmul kernel)",
+            "dense0": "ROADMAP B.5 (grouped-matmul kernel)",
+            "rwkv": "ROADMAP B.6 (RWKV-6 scan kernel)"}
+
+
+def check_kind(kind: str) -> None:
+    if kind in _WAITING:
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported yet: {_WAITING[kind]}")
+    if kind not in PORTED_KINDS:
+        raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Segments (kept for the weight converter)
+# ---------------------------------------------------------------------------
+
+def compute_segments(cfg: ArchConfig) -> list[tuple[tuple[str, ...], int]]:
+    kinds = cfg.layer_kinds()
+    if cfg.moe and cfg.moe.first_k_dense:
+        for i in range(cfg.moe.first_k_dense):
+            kinds[i] = "dense0"
+    segs: list[tuple[tuple[str, ...], int]] = []
+    i, n = 0, len(kinds)
+    while i < n:
+        best = (1, 1)
+        for ul in (1, 2, 3, 4):
+            unit = kinds[i:i + ul]
+            if len(unit) < ul:
+                break
+            r = 1
+            while kinds[i + r * ul: i + (r + 1) * ul] == unit:
+                r += 1
+            # Only repeating units justify a scan stack; a one-shot long
+            # unit would glue heterogeneous layers into one segment.
+            if r > 1 and r * ul > best[0] * best[1]:
+                best = (ul, r)
+        if best == (1, 1):
+            # Run-length of the single kind at i.
+            r = 1
+            while i + r < n and kinds[i + r] == kinds[i]:
+                r += 1
+            best = (1, r)
+        ul, r = best
+        segs.append((tuple(kinds[i:i + ul]), r))
+        i += ul * r
+    assert sum(len(u) * r for u, r in segs) == n
+    return segs
+
+
+def layer_kinds(cfg: ArchConfig) -> list[str]:
+    """Kinds in execution order: each segment's unit, repeat by repeat."""
+    return [kind for unit, repeats in compute_segments(cfg)
+            for _ in range(repeats) for kind in unit]
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+class Layer(Params):
+    """One decoder layer: its kind and its parameter groups."""
+
+    def __init__(self, kind: str, tree: dict):
+        check_kind(kind)
+        super().__init__(tree)
+        self.kind = kind
+
+
+class Model(nn.Module):
+    """Embedding, layers in execution order, final norm and LM head."""
+
+    def __init__(self, top: dict, layers: list[Layer]):
+        super().__init__()
+        self.top = Params(top)
+        self.layers = nn.ModuleList(layers)
+
+    def __getitem__(self, name: str):
+        return self.top[name]
+
+
+def _init_sublayer(gen, kind: str, cfg: ArchConfig) -> dict:
+    p: dict[str, Any] = {"ln1": ones_init(gen, (cfg.d_model,))}
+    if kind in ("attn", "local"):
+        p["attn"] = attn_mod.init_attention(gen, cfg)
+    else:
+        p["rgl"] = rglru_mod.init_rglru(gen, cfg)
+    p["ln2"] = ones_init(gen, (cfg.d_model,))
+    p["ffn"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff)
+    return p
+
+
+def _cast(tree: dict, dtype) -> dict:
+    return {k: _cast(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if v.dtype == torch.float32 else v
+            for k, v in tree.items()}
+
+
+def init_model(cfg: ArchConfig, gen: torch.Generator,
+               dtype: Optional[torch.dtype] = None) -> Model:
+    """Random weights with the reference's distributions, drawn on
+    ``gen.device``. With ``dtype``, every float32 tensor is cast to it as
+    soon as it is drawn (what the serving engine does to the whole tree),
+    so a full-size model never exists in float32 at once."""
+    kinds = layer_kinds(cfg)
+    for kind in kinds:          # before drawing anything
+        check_kind(kind)
+    cast = (lambda t: _cast(t, dtype)) if dtype is not None \
+        else (lambda t: t)
+    top = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model)),
+           "ln_f": ones_init(gen, (cfg.d_model,))}
+    if not cfg.tie_embeddings:
+        top["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size))
+    top = cast(top)
+    layers = [Layer(kind, cast(_init_sublayer(gen, kind, cfg)))
+              for kind in kinds]
+    return Model(top, layers)
+
+
+def param_count(model: Model) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Sub-layer application (single layer, full-sequence or decode)
+# ---------------------------------------------------------------------------
+
+def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
+                 mode: str, cache=None, cache_len: int = 0, position=None):
+    """Returns (x, new_cache)."""
+    kind = p.kind
+    window = cfg.window if kind == "local" else 0
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind in ("attn", "local"):
+        if mode == "prefill":
+            a, new_cache = attn_mod.attention_prefill(
+                p["attn"], h, cfg, positions, cache_len=cache_len,
+                window=window, impl=impl)
+        else:
+            a, new_cache = attn_mod.attention_decode(
+                p["attn"], h, cfg, position, cache, window=window)
+    else:
+        if mode == "prefill":
+            a, new_cache = rglru_mod.rglru_block(
+                p["rgl"], h, cfg, None, use_kernel=(impl == "flash"))
+        else:
+            a, new_cache = rglru_mod.rglru_block_decode(p["rgl"], h, cfg,
+                                                        cache)
+    x = x + a
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + mlp_mod.mlp(p["ffn"], h2)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cache init
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
+               device="cuda") -> list[Any]:
+    """Empty per-layer caches for decode entry, on ``device`` (the card
+    by default; raises when there is none)."""
+    device = resolve_device(device)
+    hd = cfg.head_dim
+    caches = []
+    for kind in layer_kinds(cfg):
+        check_kind(kind)
+        if kind in ("attn", "local"):
+            size = min(cfg.window, cache_len) if kind == "local" \
+                else cache_len
+            shape = (batch, size, cfg.num_kv_heads, hd)
+            caches.append(KVCache(
+                torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device), 0))
+        else:
+            w = cfg.recurrent.lru_width or cfg.d_model
+            caches.append(rglru_mod.RglruState(
+                torch.zeros((batch, w), dtype=torch.float32, device=device),
+                torch.zeros((batch, cfg.recurrent.conv_width - 1, w),
+                            dtype=dtype, device=device)))
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(model: Model, cfg: ArchConfig, batch: dict):
+    if "embeds" in batch:
+        x = batch["embeds"].to(cfg.activation_dtype)
+    else:
+        x = model["embed"][batch["tokens"]].to(cfg.activation_dtype)
+    b, s = x.shape[0], x.shape[1]
+    ar = torch.arange(s, device=x.device)
+    if cfg.rope == "mrope":
+        positions = batch.get("mrope_positions")
+        if positions is None:
+            positions = ar[None, None].expand(3, b, s)
+    else:
+        positions = ar[None].expand(b, s)
+    return x, positions
+
+
+def _lm_head(model: Model, cfg: ArchConfig, x):
+    x = rms_norm(x, model["ln_f"], cfg.norm_eps)
+    w = model["embed"].t() if cfg.tie_embeddings else model["lm_head"]
+    return (x @ w).float()
+
+
+def forward_prefill(model: Model, cfg: ArchConfig, batch: dict,
+                    cache_len: int, *, impl: str = "reference"):
+    """Returns (last_token_logits (B, V) float32, caches)."""
+    x, positions = _embed_inputs(model, cfg, batch)
+    caches = []
+    for layer in model.layers:
+        x, c = _apply_layer(layer, x, cfg, positions, impl=impl,
+                            mode="prefill", cache_len=cache_len)
+        caches.append(c)
+    logits = _lm_head(model, cfg, x[:, -1:])
+    return logits[:, 0], caches
+
+
+def forward_decode(model: Model, cfg: ArchConfig, tokens, caches,
+                   position: int):
+    """One decode step. tokens: (B, 1) int; position: int. Returns
+    (logits (B, V), new_caches). Attention caches are updated in place."""
+    x = model["embed"][tokens].to(cfg.activation_dtype)
+    new_caches = []
+    for layer, c in zip(model.layers, caches):
+        x, c = _apply_layer(layer, x, cfg, None, impl="reference",
+                            mode="decode", cache=c, position=position)
+        new_caches.append(c)
+    logits = _lm_head(model, cfg, x)
+    return logits[:, 0], new_caches
