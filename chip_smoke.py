@@ -24,19 +24,31 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    version on the card at the shapes the queries gave it, timed with CUDA
    events (median and spread of five batches) beside its bound, the plain
    version and one PyTorch library call;
-6. serve  — ``ServingEngine`` with RecurrentGemma-2B at full width and
-   depth (random bf16 weights from a seeded ``torch.Generator``) answers
-   8 requests of 1,024-4,096 prompt tokens and 32 new tokens each, in two
-   batches of 4; the flash attention and RG-LRU kernels must launch once
-   per ``local`` / ``rec`` layer and batch. The first batch's prefill is
-   then run again on the reference route (``impl="reference"``) and its
-   last-token logits held against the kernel route's; three planted
-   faults show what that check can see; one prefill and one decode step
-   are profiled;
-7. model kernels — flash attention and the RG-LRU scan against their
-   plain versions at the serving path's shapes (and InternLM2's attention
-   shape and a strong-decay scan), timed as in phase 5; attention also
-   in float32, where a window edge off by one must show.
+6. serve  — ``ServingEngine`` answers 8 requests of 1,024-4,096 prompt
+   tokens and 32 new tokens each, in two batches of 4, with each of three
+   models at full width and depth (random bf16 weights from a seeded
+   ``torch.Generator``): RecurrentGemma-2B (``impl="flash"``: the flash
+   attention and RG-LRU kernels launch once per ``local`` / ``rec`` layer
+   and batch), RWKV-6 1.6B (``impl="flash"``: the RWKV-6 scan once per
+   ``rwkv`` layer and batch, 48 in all) and DeepSeekMoE-16B
+   (``impl="flash_moe"``: the grouped matmul three times per ``moe`` layer
+   and batch, 162 in all; the reference attention). No other model kernel
+   may launch. Each model's first batch's prefill is then run again on
+   the reference route (``impl="reference"``) and its last-token logits
+   held against the kernel route's (for DeepSeekMoE the top-k expert
+   choices of the two routes are compared too); three planted faults
+   show what RecurrentGemma's check can see; RWKV-6's two routes are
+   also held together with the model widened to float32, where two
+   planted faults (decays rounded to bf16, log_w doubled) must fail the
+   check; one prefill and one decode step are profiled;
+7. model kernels — after each model: its kernels against their plain
+   versions at the shapes its serving phase gave them, timed as in phase
+   5 (flash attention also at InternLM2's shape and in float32, where a
+   window edge off by one must show; the scans also at a strong decay,
+   where the RWKV-6 scan is held against the step oracle; the grouped
+   matmul also in float32); one planted fault per new kernel (the RWKV-6
+   scan without its bonus u, one expert's output of the grouped matmul
+   zeroed) must fail its check.
 
 Ends with the card's name and power limit, a ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``. Any mismatch or exception exits
@@ -59,16 +71,41 @@ RTOL = 1e-6
 QUERIES = ("q1", "q6", "q12", "dup_key_join")
 PHASES = ("queries", "serve")     # a quick call may run only some
 
-# The serving phase: RecurrentGemma-2B, full width and depth.
-SERVE_ARCH = "recurrentgemma-2b"
+# The serving phases, each model at full width and depth: its kernel
+# route, and for each of its kernels the layer kind that launches it and
+# how many times per layer and batch.
+SERVINGS = {
+    "recurrentgemma-2b": ("flash", {"flash_attention": ("local", 1),
+                                    "rglru_scan": ("rec", 1)}),
+    "rwkv6-1.6b": ("flash", {"rwkv6_scan": ("rwkv", 1)}),
+    "deepseek-moe-16b": ("flash_moe", {"gmm": ("moe", 3)}),
+}
+SERVE_ARCHS = tuple(SERVINGS)     # a quick call may serve only some
 SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN = 4, 4096, 4128
 SERVE_MIN_PROMPT = 1024           # prompt lengths drawn in [1024, 4096]
 SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_SEED = 8, 32, 0
 # InternLM2-1.8B's attention at a 4096-token prefill: (B, S, H, D), Hkv.
 INTERNLM2_ATTN = ((1, 4096, 16, 128), 8)
-# Largest |flash - reference| last-token logit allowed (reason in PERF.md).
-LOGIT_TOL = 0.35
+# Largest |kernel route - reference route| last-token logit allowed, per
+# model: 2.5 times the largest difference between two sound routes of the
+# model measured on an H100 (reasons and readings in PERF.md). For an MoE
+# model the routes are held to the same expert choices.
+LOGIT_TOL = {"recurrentgemma-2b": 0.35, "rwkv6-1.6b": 2.4,
+             "deepseek-moe-16b": 1.5}
+# RWKV-6's routes also run with the model widened to float32, where they
+# differ by float32 rounding alone: 2.5 times the largest difference
+# between two sound float32 routes measured on an H100 (PERF.md). The
+# planted faults of ``log_controls`` must exceed it.
+F32_LOGIT_TOL = {"rwkv6-1.6b": 0.033}
 BF16_TOL, SCAN_TOL = 2e-2, 1e-5   # rtol = atol, as in the CPU tests
+# The RWKV-6 scan in float32: the reference's own kernel tolerance (a
+# chunked form against a step loop), here relative to the size of the
+# terms each output sums (``within_scan``).
+RWKV_TOL = 2e-4
+# The grouped matmul in float32 against the float32 einsum (one order of
+# float32 sums against another), relative to the size of the summed
+# terms, |x| @ |w|.
+GMM_F32_TOL = 1e-5
 # Attention on the same inputs widened to float32: the float32 kernel
 # against the float32 plain version within F32_ATTN_TOL, and the bf16
 # kernel against that same float32 result within one rounding to bf16
@@ -76,6 +113,9 @@ BF16_TOL, SCAN_TOL = 2e-2, 1e-5   # rtol = atol, as in the CPU tests
 F32_ATTN_TOL = 1e-4
 BF16_ROUND = 2.0 ** -8
 BF16_FLOPS_PER_S = 989e12         # H100 SXM dense bf16 (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12         # H100 SXM dense TF32 (NVIDIA data sheet)
+RWKV_CHUNK = 16                   # chunk of the chunk-parallel form's bound
 
 
 def log(phase: str, **fields) -> None:
@@ -147,44 +187,55 @@ def check_result(name, got, want) -> None:
 
 class Recorder:
     """Wraps a kernel wrapper to keep the inputs of its largest call in
-    an untimed query run (the launch count stays the wrapper's own)."""
+    an untimed run (the launch count stays the wrapper's own); with
+    ``by_shape``, also the first call of each distinct input shape, in
+    ``shapes``."""
 
-    def __init__(self, module, name, size):
+    def __init__(self, module, name, size, by_shape=False):
         self.module, self.name, self.size = module, name, size
         self.orig = getattr(module, name)
         self.args = None
+        self.shapes = {} if by_shape else None
         setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
         if self.args is None or self.size(args) > self.size(self.args[0]):
             self.args = (tuple(a.clone() for a in args), dict(kwargs))
+        if self.shapes is not None:
+            key = tuple(tuple(a.shape) for a in args)
+            if key not in self.shapes:
+                self.shapes[key] = (tuple(a.clone() for a in args),
+                                    dict(kwargs))
         return self.orig(*args, **kwargs)
 
     def restore(self):
         setattr(self.module, self.name, self.orig)
 
 
-def launch_counts() -> dict:
+def _kernel_modules():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hash_join as hj
+    from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import segment_reduce as sr
-    return {"probe": hj.PROBE_LAUNCHES,
-            "probe_range": hj.PROBE_RANGE_LAUNCHES,
-            "segment_reduce": sr.SEGMENT_REDUCE_LAUNCHES,
-            "flash_attention": fa.FLASH_ATTENTION_LAUNCHES,
-            "rglru_scan": rg.RGLRU_SCAN_LAUNCHES}
+    return {"probe": (hj, "PROBE_LAUNCHES"),
+            "probe_range": (hj, "PROBE_RANGE_LAUNCHES"),
+            "segment_reduce": (sr, "SEGMENT_REDUCE_LAUNCHES"),
+            "flash_attention": (fa, "FLASH_ATTENTION_LAUNCHES"),
+            "rglru_scan": (rg, "RGLRU_SCAN_LAUNCHES"),
+            "rwkv6_scan": (rs, "RWKV6_SCAN_LAUNCHES"),
+            "gmm": (mg, "GMM_LAUNCHES")}
+
+
+def launch_counts() -> dict:
+    return {k: getattr(mod, attr)
+            for k, (mod, attr) in _kernel_modules().items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import hash_join as hj
-    from repro_torch.kernels import rglru_scan as rg
-    from repro_torch.kernels import segment_reduce as sr
-    hj.PROBE_LAUNCHES = hj.PROBE_RANGE_LAUNCHES = 0
-    sr.SEGMENT_REDUCE_LAUNCHES = 0
-    fa.FLASH_ATTENTION_LAUNCHES = 0
-    rg.RGLRU_SCAN_LAUNCHES = 0
+    for mod, attr in _kernel_modules().values():
+        setattr(mod, attr, 0)
 
 
 def run_queries(store, keys):
@@ -259,7 +310,9 @@ OWN_KERNELS = (("probe_range", "probe_range_kernel"),
                ("probe", "probe_kernel"),
                ("segment_reduce", "segment_reduce_pass"),
                ("flash_attention", "flash_attention_kernel"),
-               ("rglru_scan", "rglru_scan_kernel"))
+               ("rglru_scan", "rglru_scan_kernel"),
+               ("rwkv6_scan", "rwkv6_scan_kernel"),
+               ("gmm", "gmm_bf16_kernel"))
 
 
 def own_kernel(key: str):
@@ -531,19 +584,21 @@ def serve_requests(vocab: int):
             for i, n in enumerate(lengths)]
 
 
-def run_serving():
-    """The serving main path: build the engine, answer the requests,
-    read the launch counts of ``serve`` alone."""
+def run_serving(arch: str):
+    """The serving main path of ``arch``: build the engine on its kernel
+    route, answer the requests, read the launch counts of ``serve``
+    alone."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.engine import ServingEngine
-    cfg = ARCHS[SERVE_ARCH]
+    cfg = ARCHS[arch]
+    impl, kernels = SERVINGS[arch]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN,
-                        seed=SERVE_SEED, device=DEVICE)
+                        seed=SERVE_SEED, impl=impl, device=DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     kinds = [layer.kind for layer in eng.model.layers]
@@ -552,8 +607,8 @@ def run_serving():
         parameter_bytes=sum(p.numel() * p.element_size()
                             for p in eng.model.parameters()),
         dtype=str(cfg.activation_dtype), layers=len(kinds),
-        rec_layers=kinds.count("rec"), local_layers=kinds.count("local"),
-        impl="flash")
+        layer_kinds={k: kinds.count(k) for k in sorted(set(kinds))},
+        impl=impl)
     reqs = serve_requests(cfg.vocab_size)
     prefill, decode = Timed(eng.prefill), Timed(eng.decode)
     eng.prefill, eng.decode = prefill, decode
@@ -571,125 +626,310 @@ def run_serving():
         c = r.completion
         if c is None or c.shape != (SERVE_NEW_TOKENS,) or c.min() < 0 \
                 or c.max() >= cfg.vocab_size:
-            raise AssertionError(f"request {r.request_id}: bad completion "
-                                 f"{c}")
+            raise AssertionError(f"{arch} request {r.request_id}: bad "
+                                 f"completion {c}")
     if sorted(r.request_id for r in done) != list(range(SERVE_REQUESTS)):
-        raise AssertionError("not every request was answered")
+        raise AssertionError(f"{arch}: not every request was answered")
     batches = -(-SERVE_REQUESTS // SERVE_BATCH)
     dec = sorted(decode.seconds)
     new_tokens = sum(len(r.completion) for r in done)
-    log("serve_requests", requests=SERVE_REQUESTS, batches=batches,
-        prompt_tokens=[len(r.prompt) for r in reqs],
+    log("serve_requests", arch=arch, requests=SERVE_REQUESTS,
+        batches=batches, prompt_tokens=[len(r.prompt) for r in reqs],
         padded_prompt_tokens=SERVE_PROMPT, new_tokens=new_tokens,
         wall_s=wall, latency_s=[r.latency_s for r in done])
-    log("serve_prefill", seconds_per_batch=prefill.seconds,
+    log("serve_prefill", arch=arch, seconds_per_batch=prefill.seconds,
         prefill_tokens_per_s=[SERVE_BATCH * SERVE_PROMPT / t
                               for t in prefill.seconds])
-    log("serve_decode", steps=len(dec), step_ms_median=dec[len(dec) // 2]
-        * 1e3, step_ms_min=dec[0] * 1e3, step_ms_max=dec[-1] * 1e3,
+    log("serve_decode", arch=arch, steps=len(dec),
+        step_ms_median=dec[len(dec) // 2] * 1e3, step_ms_min=dec[0] * 1e3,
+        step_ms_max=dec[-1] * 1e3,
         step_ms_p90=dec[int(0.9 * (len(dec) - 1))] * 1e3)
-    log("serve_throughput", new_tokens_per_s=new_tokens / wall,
+    log("serve_throughput", arch=arch, new_tokens_per_s=new_tokens / wall,
         requests_per_s=SERVE_REQUESTS / wall)
-    log("serve_memory", max_memory_allocated=peak,
+    log("serve_memory", arch=arch, max_memory_allocated=peak,
         max_memory_allocated_gib=peak / 2**30)
-    log("serve_launches", **launches)
-    log("serve_cost", **eng.cost_report(wall, len(done)))
-    want = {"flash_attention": kinds.count("local") * batches,
-            "rglru_scan": kinds.count("rec") * batches}
+    log("serve_launches", arch=arch, **launches)
+    log("serve_cost", arch=arch, **eng.cost_report(wall, len(done)))
+    want = {k: kinds.count(kind) * per * batches
+            for k, (kind, per) in kernels.items()}
     for k, n in want.items():
         if launches[k] == 0 or launches[k] != n:
-            raise AssertionError(f"{k} launched {launches[k]} times in "
-                                 f"serve, expected {n}")
+            raise AssertionError(f"{arch}: {k} launched {launches[k]} times "
+                                 f"in serve, expected {n}")
     if any(launches[k] for k in launches if k not in want):
-        raise AssertionError(f"query kernels launched in serve: {launches}")
+        raise AssertionError(f"{arch}: other kernels launched in serve: "
+                             f"{launches}")
     first = np.asarray([r.completion[0] for r in done[:SERVE_BATCH]])
     return eng, reqs, launches, first
+
+
+def _recorders(arch: str) -> dict:
+    """Recorders of the inputs of ``arch``'s kernels."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rs
+    first = lambda a: a[0].numel()  # noqa: E731
+    made = {"flash_attention": lambda: Recorder(fa, "flash_attention", first),
+            "rglru_scan": lambda: Recorder(rg, "rglru_scan", first),
+            "rwkv6_scan": lambda: Recorder(rs, "rwkv6_scan", first),
+            "gmm": lambda: Recorder(mg, "gmm", first, by_shape=True)}
+    return {k: made[k]() for k in SERVINGS[arch][1]}
+
+
+class RouteLog:
+    """Records the top-k expert choices of every MoE layer's router; with
+    ``replay``, makes each layer choose the experts recorded there (its
+    gates are its own router's probabilities at those experts)."""
+
+    def __init__(self, replay=None):
+        from repro_torch.models import moe
+        self.module, self.orig, self.idx = moe, moe._route, []
+        self.replay = list(replay) if replay is not None else None
+        moe._route = self
+
+    def __call__(self, params, x2d, mo, norm_topk):
+        import torch
+        if self.replay is None:
+            gates, idx, aux = self.orig(params, x2d, mo, norm_topk)
+        else:
+            _, _, aux = self.orig(params, x2d, mo, norm_topk)
+            idx = self.replay.pop(0)
+            probs = torch.softmax(x2d.float() @ params["w_router"].float(),
+                                  dim=-1)
+            gates = probs.gather(-1, idx)
+            if norm_topk:
+                gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        self.idx.append(idx)
+        return gates, idx, aux
+
+    def restore(self):
+        self.module._route = self.orig
+
+    def differing(self, other) -> list[int]:
+        """Per layer, the (token, choice) pairs whose sorted top-k sets
+        differ from ``other``'s."""
+        return [int((a.sort(-1).values != b.sort(-1).values).sum())
+                for a, b in zip(self.idx, other.idx)]
+
+
+def prefill_logits(eng, toks, cfg=None, impl=None, replay=None,
+                   model=None):
+    """The first batch's last-token logits of one prefill of ``model``
+    (the engine's by default) on ``impl`` (the model's kernel route by
+    default); with ``replay``, the MoE layers take the recorded expert
+    choices."""
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = cfg or eng.cfg
+    step = make_prefill_step(cfg, cache_len=SERVE_MAX_LEN,
+                             impl=impl or SERVINGS[eng.cfg.name][0])
+    routes = RouteLog(replay) if replay is not None else None
+    try:
+        return step(eng.model if model is None else model,
+                    {"tokens": toks})[0]
+    finally:
+        if routes is not None:
+            routes.restore()
 
 
 def check_serving_reference(eng, reqs, first_tokens):
     """The first batch's prefill again on the kernel route (keeping each
     kernel's inputs) and on the reference route: last-token logits within
-    ``LOGIT_TOL``, and the same first greedy token wherever the
-    reference's top-1/top-2 gap exceeds twice the largest difference."""
+    the model's ``LOGIT_TOL``, and the same first greedy token wherever
+    the reference's top-1/top-2 gap exceeds twice the largest difference.
+    For an MoE model, how many top-k expert choices the routes differ in.
+    Returns the recorded kernel inputs, the tokens, and the failed checks
+    (which ``main`` raises after the remaining phases)."""
     import numpy as np
     import torch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.launch.steps import make_prefill_step
+    arch = eng.cfg.name
+    tol = LOGIT_TOL[arch]
     toks = eng._batch_prompts(reqs[:SERVE_BATCH])
-    recorders = {"flash_attention": Recorder(fa, "flash_attention",
-                                             lambda a: a[0].numel()),
-                 "rglru_scan": Recorder(rg, "rglru_scan",
-                                        lambda a: a[0].numel())}
+    routes = {"kernel": RouteLog()} if eng.cfg.moe else {}
+    recorders = _recorders(arch)
     try:
-        flash_logits, _ = eng.prefill(eng.model, {"tokens": toks})
+        kern_logits, _ = eng.prefill(eng.model, {"tokens": toks})
         torch.cuda.synchronize()
     finally:
         for r in recorders.values():
             r.restore()
+        for r in routes.values():
+            r.restore()
     ref_step = make_prefill_step(eng.cfg, cache_len=SERVE_MAX_LEN,
                                  impl="reference")
+    if eng.cfg.moe:
+        routes["reference"] = RouteLog()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref_logits, _ = ref_step(eng.model, {"tokens": toks})
-    torch.cuda.synchronize()
+    try:
+        ref_logits, _ = ref_step(eng.model, {"tokens": toks})
+        torch.cuda.synchronize()
+    finally:
+        if "reference" in routes:
+            routes["reference"].restore()
     ref_s = time.perf_counter() - t0
-    diff = float((flash_logits - ref_logits).abs().max())
+    diff = float((kern_logits - ref_logits).abs().max())
     top2 = ref_logits.topk(2, dim=-1).values
     gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-    tok_f = flash_logits.argmax(-1).cpu().numpy()
+    tok_k = kern_logits.argmax(-1).cpu().numpy()
     tok_r = ref_logits.argmax(-1).cpu().numpy()
     decided = gap > 2 * diff
-    log("serve_reference", max_abs_logit_diff=diff, tolerance=LOGIT_TOL,
-        logit_std=float(ref_logits.std()),
-        first_token_flash=tok_f.tolist(), first_token_reference=tok_r.tolist(),
+    extra = {}
+    if routes:
+        differ = routes["kernel"].differing(routes["reference"])
+        extra = {"moe_layers": len(differ),
+                 "expert_choices_per_layer": int(
+                     routes["kernel"].idx[0].numel()),
+                 "expert_choices_differing": sum(differ),
+                 "expert_choices_differing_per_layer": differ}
+        if sum(differ):
+            # A flipped choice moves the logits by more than rounding: hold
+            # the reference route to the kernel route's choices instead.
+            ref_logits = prefill_logits(eng, toks, impl="reference",
+                                        replay=routes["kernel"].idx)
+            diff = float((kern_logits - ref_logits).abs().max())
+            top2 = ref_logits.topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            tok_r = ref_logits.argmax(-1).cpu().numpy()
+            decided = gap > 2 * diff
+            extra["same_experts_max_abs_logit_diff"] = diff
+    log("serve_reference", arch=arch, max_abs_logit_diff=diff,
+        tolerance=tol, logit_std=float(ref_logits.std()),
+        first_token_kernel=tok_k.tolist(),
+        first_token_reference=tok_r.tolist(),
         first_token_served=first_tokens.tolist(),
         top1_top2_gap=gap.tolist(), decided=decided.tolist(),
-        reference_prefill_s=ref_s)
-    if not (torch.isfinite(flash_logits).all()
+        reference_prefill_s=ref_s, **extra)
+    if not (torch.isfinite(kern_logits).all()
             and torch.isfinite(ref_logits).all()):
-        raise AssertionError("non-finite prefill logits")
-    if flash_logits.shape != (SERVE_BATCH, eng.cfg.vocab_size):
-        raise AssertionError(f"logits shape {tuple(flash_logits.shape)}")
-    if not diff <= LOGIT_TOL:
-        raise AssertionError(f"flash vs reference logits differ by {diff} "
-                             f"> {LOGIT_TOL}")
-    if np.any(decided & (tok_f != tok_r)):
-        raise AssertionError("the first greedy token differs where the "
-                             "reference's margin decides it")
-    log_controls(eng, toks, flash_logits, ref_logits)
-    return {k: r.args for k, r in recorders.items()}, toks
+        raise AssertionError(f"{arch}: non-finite prefill logits")
+    if kern_logits.shape != (SERVE_BATCH, eng.cfg.vocab_size):
+        raise AssertionError(f"{arch}: logits shape "
+                             f"{tuple(kern_logits.shape)}")
+    log_controls(eng, toks, kern_logits, ref_logits,
+                 routes["kernel"].idx if routes else None)
+    # Read at the end of the run, after every phase has logged.
+    failures = []
+    if not diff <= tol:
+        failures.append(f"{arch}: kernel vs reference logits differ by "
+                        f"{diff} > {tol}")
+    if np.any(decided & (tok_k != tok_r)):
+        failures.append(f"{arch}: the first greedy token differs where the "
+                        "reference's margin decides it")
+    if arch in F32_LOGIT_TOL:
+        failures += check_float32_logits(eng, toks)
+    return {k: r.args if r.shapes is None else r.shapes
+            for k, r in recorders.items()}, toks, failures
 
 
-def log_controls(eng, toks, flash_logits, ref_logits):
-    """What the logit check sees of a fault: the kernel route's prefill
-    with the window edge one key wider, with the window dropped, and with
-    the scan's decays rounded to bf16, each held against both routes."""
+def check_float32_logits(eng, toks) -> list[str]:
+    """The first batch's prefill again with the model widened to float32
+    (the same weights) on the kernel route (the float32 kernels) and the
+    reference route: last-token logits within the model's
+    ``F32_LOGIT_TOL``, and every planted fault of ``log_controls``, run
+    in float32 too, beyond it. Returns the failed checks."""
+    import copy
     import dataclasses
     import torch
+    arch = eng.cfg.name
+    tol = F32_LOGIT_TOL[arch]
+    cfg = dataclasses.replace(eng.cfg, dtype="float32")
+    model = copy.deepcopy(eng.model).float()
+    kern = prefill_logits(eng, toks, cfg, model=model)
+    ref = prefill_logits(eng, toks, cfg, "reference", model=model)
+    diff = float((kern - ref).abs().max())
+    log("serve_reference_float32", arch=arch, max_abs_logit_diff=diff,
+        tolerance=tol, logit_std=float(ref.std()))
+    readings = log_controls(eng, toks, kern, ref, cfg=cfg, model=model,
+                            tol=tol)
+    del model, kern, ref
+    torch.cuda.empty_cache()
+    failures = []
+    if not diff <= tol:
+        failures.append(f"{arch}: float32 kernel vs reference logits "
+                        f"differ by {diff} > {tol}")
+    unseen = {name: r["vs_reference"] for name, r in readings.items()
+              if not name.startswith("sound_") and r["vs_reference"] <= tol}
+    if unseen:
+        failures.append(f"{arch}: the float32 logit check missed planted "
+                        f"faults {unseen}")
+    return failures
+
+
+class replaced:
+    """Within the block, ``module.name`` is ``wrap(original)``."""
+
+    def __init__(self, module, name, wrap):
+        self.module, self.name, self.wrap = module, name, wrap
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.wrap(self.orig))
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def log_controls(eng, toks, kern_logits, ref_logits, experts=None,
+                 cfg=None, model=None, tol=None) -> dict:
+    """What the logit check sees: the first batch's prefill (of ``model``
+    under ``cfg``, the engine's by default) with a planted fault, or on
+    another sound route (names starting ``sound_``, which only round
+    differently), each held against both routes; returns the readings.
+    RecurrentGemma-2B: the window edge one key wider, the window dropped,
+    the RG-LRU decays rounded to bf16. RWKV-6: the reference route with
+    32-step chunks (sound), the scan's decays rounded to bf16, log_w
+    doubled. DeepSeekMoE: the flash-attention route (sound), and expert
+    0's output of every grouped matmul zeroed, each also with the kernel
+    route's expert choices (``experts``) replayed."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import rglru_scan as rg
-    from repro_torch.launch.steps import make_prefill_step
-    cfg = eng.cfg
+    from repro_torch.kernels import rwkv6_scan as rs
+    cfg = cfg or eng.cfg
+    prefill = lambda c=None, impl=None, replay=None: prefill_logits(  # noqa: E731
+        eng, toks, c or cfg, impl, replay, model)
+    bf16 = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    out = {}
+    if cfg.name == "recurrentgemma-2b":
+        out["window_plus_one"] = prefill(dataclasses.replace(
+            cfg, window=cfg.window + 1))
+        out["no_window"] = prefill(dataclasses.replace(cfg, window=0))
+        with replaced(rg, "rglru_scan", lambda f: lambda la, b, h0: f(
+                bf16(la), b, h0)):
+            out["bf16_decays"] = prefill()
+    elif cfg.name == "rwkv6-1.6b":
+        out["sound_reference_chunk_32"] = prefill(dataclasses.replace(
+            cfg, recurrent=dataclasses.replace(cfg.recurrent, chunk=32)),
+            "reference")
+        with replaced(rs, "rwkv6_scan", lambda f: lambda r, k, v, lw, u, s0,
+                      **kw: f(r, k, v, bf16(lw), u, s0, **kw)):
+            out["bf16_decays"] = prefill()
+        with replaced(rs, "rwkv6_scan", lambda f: lambda r, k, v, lw, u, s0,
+                      **kw: f(r, k, v, 2 * lw, u, s0, **kw)):
+            out["log_w_doubled"] = prefill()
+    elif cfg.name == "deepseek-moe-16b":
+        out["sound_flash_attention_route"] = prefill(impl="flash")
+        out["sound_flash_attention_route_same_experts"] = prefill(
+            impl="flash", replay=experts)
 
-    def prefill(c):
-        step = make_prefill_step(c, cache_len=SERVE_MAX_LEN, impl="flash")
-        return step(eng.model, {"tokens": toks})[0]
-
-    faulty = {
-        "window_plus_one": prefill(dataclasses.replace(
-            cfg, window=cfg.window + 1)),
-        "no_window": prefill(dataclasses.replace(cfg, window=0))}
-    scan = rg.rglru_scan
-    rg.rglru_scan = lambda la, b, h0: scan(la.to(torch.bfloat16).float(),
-                                           b, h0)
-    try:
-        faulty["bf16_decays"] = prefill(cfg)
-    finally:
-        rg.rglru_scan = scan
-    log("serve_controls", tolerance=LOGIT_TOL, **{
-        name: {"vs_reference": float((x - ref_logits).abs().max()),
-               "vs_kernel_route": float((x - flash_logits).abs().max())}
-        for name, x in faulty.items()})
+        def zero_expert_0(f):
+            def gmm(x, w):
+                y = f(x, w)
+                y[0] = 0
+                return y
+            return gmm
+        with replaced(mg, "gmm", zero_expert_0):
+            out["expert_0_zeroed"] = prefill()
+            out["expert_0_zeroed_same_experts"] = prefill(replay=experts)
+    readings = {name: {"vs_reference": float((x - ref_logits).abs().max()),
+                       "vs_kernel_route": float((x - kern_logits).abs().max())}
+                for name, x in out.items()}
+    log("serve_controls", arch=cfg.name, dtype=cfg.dtype,
+        tolerance=LOGIT_TOL[cfg.name] if tol is None else tol, **readings)
+    return readings
 
 
 def profile_serving(eng, toks):
@@ -704,7 +944,7 @@ def profile_serving(eng, toks):
         logits, caches = eng.prefill(eng.model, {"tokens": toks})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log("serve_profile", step="prefill", wall_s=wall,
+    log("serve_profile", arch=eng.cfg.name, step="prefill", wall_s=wall,
         **device_summary(prof, wall))
     nxt = logits.argmax(-1).to(torch.int32)[:, None]
     eng.decode(eng.model, nxt, caches, SERVE_PROMPT)       # warm
@@ -714,7 +954,7 @@ def profile_serving(eng, toks):
         eng.decode(eng.model, nxt, caches, SERVE_PROMPT + 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log("serve_profile", step="decode", wall_s=wall,
+    log("serve_profile", arch=eng.cfg.name, step="decode", wall_s=wall,
         **device_summary(prof, wall))
 
 
@@ -866,6 +1106,234 @@ def check_rglru(recorded, launches):
     return rows
 
 
+def fails_check(fn) -> bool:
+    """Whether ``fn`` (a ``within`` check) raises."""
+    try:
+        fn()
+    except AssertionError:
+        return True
+    return False
+
+
+def rwkv6_truth(r, k, v, log_w, u, s0):
+    """The WKV recurrence stepped in float64, and the same recurrence on
+    absolute values: for each output and final state entry, the size of
+    the terms it sums. Returns (o, s_final, o_mag, s_mag)."""
+    import torch
+    rd, kd, vd = r.double(), k.double(), v.double()
+    w = torch.exp(log_w.double())
+    uu = u.double()[None, :, :, None]
+    s, m = s0.double(), s0.double().abs()
+    out, mag = [], []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", kd[:, t], vd[:, t])
+        out.append(torch.einsum("bhk,bhkv->bhv", rd[:, t], s + uu * kv))
+        mag.append(torch.einsum("bhk,bhkv->bhv", rd[:, t].abs(),
+                                m + (uu * kv).abs()))
+        s = s * w[:, t, ..., None] + kv
+        m = m * w[:, t, ..., None] + kv.abs()
+    return torch.stack(out, 1), s, torch.stack(mag, 1), m
+
+
+def within_scan(got, want, mag, rel) -> float:
+    """Max |got - want|; raises unless |got - want| <= rel*|want| +
+    RWKV_TOL*mag everywhere (and both are finite). A scan output sums
+    terms up to twice its own size and more where they cancel, and float32
+    errors scale with the terms, so the absolute part of the bound scales
+    with ``mag``, the size of the terms (``rwkv6_truth``)."""
+    import torch
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()
+            and (err <= rel * w.abs() + RWKV_TOL * mag).all()):
+        worst = int((err - rel * w.abs() - RWKV_TOL * mag).argmax())
+        raise AssertionError(
+            f"rwkv6_scan: max |diff| {float(err.max())}; worst at value "
+            f"{float(w.flatten()[worst])}, terms of size "
+            f"{float(mag.flatten()[worst])}, beyond {rel}*|value| + "
+            f"{RWKV_TOL}*size")
+    return float(err.max())
+
+
+def check_rwkv6(recorded, launches):
+    """The RWKV-6 scan at the serving shape against its plain version
+    (the chunked oracle), and both, as float32 kernels too, against the
+    recurrence stepped in float64; then at a strong decay (log_w = -6, a
+    decay mass of 384 per 64 steps) against the step oracle, where the
+    same check must see a planted fault (the bonus u dropped); then at a
+    ragged length. Errors are bounded by a relative part and a part
+    scaled by the size of the summed terms (``within_scan``)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rs
+    (r, k, v, lw, u, s0), kw = recorded["rwkv6_scan"]
+    b, s, h, kd = r.shape
+    vd = v.shape[3]
+    kern = lambda: rs.rwkv6_scan(r, k, v, lw, u, s0)  # noqa: E731
+    plain = lambda: rs.rwkv6_scan_plain(r, k, v, lw, u, s0, **kw)  # noqa: E731
+    (g_o, g_s), (w_o, w_s) = kern(), plain()
+    t_o, t_s, o_mag, s_mag = rwkv6_truth(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    err = within_scan(g_o, w_o, o_mag, BF16_TOL)
+    state_err = within_scan(g_s, w_s, s_mag, 0.0)
+    # Against float64 truth: the bf16 outputs within one rounding, the
+    # float32 outputs and states within the scaled part alone.
+    truth = {"kernel_bf16": within_scan(g_o, t_o, o_mag, BF16_ROUND),
+             "plain_bf16": within_scan(w_o, t_o, o_mag, BF16_ROUND),
+             "kernel_state": within_scan(g_s, t_s, s_mag, 0.0),
+             "plain_state": within_scan(w_s, t_s, s_mag, 0.0)}
+    rf, kf, vf = r.float(), k.float(), v.float()
+    f_o, f_s = rs.rwkv6_scan(rf, kf, vf, lw, u, s0)
+    p_o, p_s = rs.rwkv6_scan_plain(rf, kf, vf, lw, u, s0, **kw)
+    truth["kernel_f32"] = within_scan(f_o, t_o, o_mag, 0.0)
+    truth["plain_f32"] = within_scan(p_o, t_o, o_mag, 0.0)
+    size = o_mag.clamp_min(1e-300)
+    truth["kernel_f32_over_size"] = float(((f_o - t_o).abs() / size).max())
+    truth["plain_f32_over_size"] = float(((p_o - t_o).abs() / size).max())
+    value_max, size_max = float(t_o.abs().max()), float(o_mag.max())
+    del rf, kf, vf, f_o, f_s, p_o, p_s, t_o, t_s, o_mag, s_mag, size
+    # Strong decay, random u: where the factorized TPU form overflows.
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    f32 = dict(dtype=torch.float32, device=DEVICE, generator=gen)
+    sr, sk, sv = (torch.randn(r.shape, **f32) * 0.5 for _ in range(3))
+    slw = torch.full(lw.shape, -6.0, dtype=torch.float32, device=DEVICE)
+    su = torch.randn(u.shape, **f32) * 0.3
+    ss0 = torch.randn(s0.shape, **f32) * 0.1
+    st_o, st_s = rs.rwkv6_scan(sr, sk, sv, slw, su, ss0)
+    st_wo, st_ws = ref.rwkv6_step_ref(sr, sk, sv, slw, su, ss0)
+    _, _, st_mag, st_smag = rwkv6_truth(sr, sk, sv, slw, su, ss0)
+    torch.cuda.synchronize()
+    strong_err = max(within_scan(st_o, st_wo, st_mag, RWKV_TOL),
+                     within_scan(st_s, st_ws, st_smag, RWKV_TOL))
+    no_u, _ = rs.rwkv6_scan(sr, sk, sv, slw, torch.zeros_like(su), ss0)
+    planted = float((no_u - st_wo).abs().max())
+    if not fails_check(lambda: within_scan(no_u, st_wo, st_mag, RWKV_TOL)):
+        raise AssertionError("rwkv6_scan: the check missed the planted "
+                             f"fault (u dropped, max |diff| {planted})")
+    del sr, sk, sv, slw, st_o, st_s, st_wo, st_ws, st_mag, st_smag, no_u
+    # A ragged length: no whole number of 64-step chunks.
+    rr, rk, rv = (torch.randn((2, 1000, 3, kd), **f32) for _ in range(3))
+    rlw = -torch.exp(torch.randn((2, 1000, 3, kd), **f32) - 2.0)
+    ru, rs0 = su[:3].contiguous(), ss0[:2, :3].contiguous()
+    ro, rst = rs.rwkv6_scan(rr, rk, rv, rlw, ru, rs0)
+    rwo, rws = ref.rwkv6_step_ref(rr, rk, rv, rlw, ru, rs0)
+    _, _, r_mag, r_smag = rwkv6_truth(rr, rk, rv, rlw, ru, rs0)
+    ragged_err = max(within_scan(ro, rwo, r_mag, RWKV_TOL),
+                     within_scan(rst, rws, r_smag, RWKV_TOL))
+    per = time_spread(kern)
+    nbytes = (r.numel() + k.numel() + v.numel() + g_o.numel()) \
+        * r.element_size() + 4 * (lw.numel() + u.numel() + 2 * s0.numel())
+    # Operations of the cheapest exact form, the chunk-parallel one with
+    # pairwise decays: per step and head, r.S and the k v^T update as
+    # matmuls over the float32 state on the tensor cores (4*K*V at the
+    # TF32 rate) and the pairwise terms within a chunk of RWKV_CHUNK steps
+    # on the CUDA cores (2*RWKV_CHUNK*(K+V) at the float32 rate).
+    tc_flops = b * h * s * 4 * kd * vd
+    cc_flops = b * h * s * 2 * RWKV_CHUNK * (kd + vd)
+    flops = tc_flops + cc_flops
+    t_ops = (tc_flops / TF32_FLOPS_PER_S + cc_flops / F32_FLOPS_PER_S) * 1e3
+    t_bytes = bound_ms(nbytes)
+    # This kernel's own sequential form: 5*K*V + 3*K + 2*V per step and
+    # head, all on the CUDA cores.
+    design_ms = b * h * s * (5 * kd * vd + 3 * kd + 2 * vd) \
+        / F32_FLOPS_PER_S * 1e3
+    row = {"name": "rwkv6_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+           "replaces": "src/repro/kernels/rwkv6_scan.py:27",
+           "launches": launches["rwkv6_scan"], "max_abs_err": err,
+           "ms": per[len(per) // 2], "ms_min": per[0], "ms_max": per[-1],
+           "plain_ms": time_ms(plain), "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None}
+    log("kernel", **row, shape=[b, s, h, kd, vd], dtype=str(r.dtype),
+        bound_ops_ms=t_ops, bound_bytes_ms=t_bytes, flops=flops,
+        sequential_form_ops_ms=design_ms, bytes=nbytes, state_max_abs_err=state_err, tol=RWKV_TOL,
+        vs_float64_max_abs_err=truth, output_max=value_max,
+        term_size_max=size_max, strong_decay_max_abs_err=strong_err,
+        planted_u_dropped_max_abs_diff=planted, planted_seen=True,
+        ragged_max_abs_err=ragged_err,
+        log_w_range=[float(lw.min()), float(lw.max())])
+    return [{key: row[key] for key in ROW_KEYS}]
+
+
+def check_gmm(recorded, launches):
+    """The grouped matmul at each shape the serving path gave it (gate/up,
+    then down) against its plain version and ``torch.bmm``; in float32
+    against the float32 plain version, with the bf16 result within one
+    rounding of that; one expert's output zeroed must fail the check."""
+    import torch
+    from repro_torch.kernels import moe_gmm as mg
+    rows = []
+    calls = sorted(recorded["gmm"].values(), key=lambda a: -a[0][0].shape[2])
+    for n, ((x, w), _) in enumerate(calls):
+        e, c, d = x.shape
+        f = w.shape[2]
+        kern = lambda: mg.gmm(x, w)  # noqa: E731
+        plain = lambda: mg.gmm_plain(x, w)  # noqa: E731
+        lib = lambda: torch.bmm(x, w)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = within(got, want, BF16_TOL)
+        # Float32: the kernel against the plain version, and the bf16
+        # result against that within one rounding; the float32 part of
+        # each bound scales with the size of the summed terms, |x| @ |w|.
+        want32 = mg.gmm_plain(x.float(), w.float())
+        size = mg.gmm_plain(x.float().abs(), w.float().abs())
+        got32 = mg.gmm(x.float(), w.float())
+        torch.cuda.synchronize()
+        f32_excess = float(((got32 - want32).abs()
+                            - GMM_F32_TOL * size).max())
+        f32_err = float((got32 - want32).abs().max())
+        del got32
+        bf16_excess = float(((got.float() - want32).abs()
+                             - BF16_ROUND * want32.abs()
+                             - GMM_F32_TOL * size).max())
+        del size
+        if not (f32_excess <= 0 and bf16_excess <= 0):
+            raise AssertionError(f"gmm against float32: excess over the "
+                                 f"bound {f32_excess} (float32 kernel), "
+                                 f"{bf16_excess} (bf16 kernel)")
+        busiest = int(want32.abs().amax(dim=(1, 2)).argmax())
+        del want32
+        bad = got.clone()
+        bad[busiest] = 0
+        planted = float((bad.float() - want.float()).abs().max())
+        if not fails_check(lambda: within(bad, want, BF16_TOL)):
+            raise AssertionError(f"gmm: the check missed the planted fault "
+                                 f"(expert {busiest} zeroed)")
+        del bad
+        flops = 2.0 * e * c * d * f
+        nbytes = (x.numel() + w.numel() + got.numel()) * x.element_size()
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, bound_ms(nbytes)
+        row = {"name": "gmm", "route": "cuda",
+               "source": "src/repro_torch/csrc/moe_gmm.cu",
+               "replaces": "src/repro/kernels/moe_gmm.py:17",
+               "launches": launches["gmm"], "max_abs_err": err,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               **kernel_times(kern, plain, lib)}
+        log("kernel" if n == 0 else "kernel_sweep", **row,
+            shape=[e, c, d, f], dtype=str(x.dtype), flops=flops,
+            bytes=nbytes, bound_bytes_ms=t_bytes,
+            tflops_per_s=flops / row["ms"] / 1e9, f32_max_abs_err=f32_err,
+            f32_tol=GMM_F32_TOL, f32_excess_over_bound=f32_excess,
+            bf16_vs_f32_excess_over_bound=bf16_excess,
+            planted_expert_zeroed=busiest,
+            planted_max_abs_diff=planted, planted_seen=True,
+            empty_slots=int((x.abs().amax(dim=2) == 0).sum()))
+        if n == 0:
+            rows.append({key: row[key] for key in ROW_KEYS})
+    return rows
+
+
+MODEL_CHECKS = {
+    "recurrentgemma-2b": lambda rec, n: check_flash(rec, n)
+    + check_rglru(rec, n),
+    "rwkv6-1.6b": check_rwkv6,
+    "deepseek-moe-16b": check_gmm,
+}
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -898,7 +1366,7 @@ def main() -> int:
     log("device", torch=torch.__version__, cuda=torch.version.cuda,
         name=torch.cuda.get_device_name(0), nvidia_smi=smi)
 
-    kernels = []
+    kernels, failures = [], []
     if "queries" in PHASES:
         t0 = time.perf_counter()
         store = ObjectStore()
@@ -915,14 +1383,20 @@ def main() -> int:
             + check_segment_reduce(recorded, launches)
         del store, keys, recorded
     if "serve" in PHASES:
-        eng, reqs, launches, first = run_serving()
-        recorded, toks = check_serving_reference(eng, reqs, first)
-        profile_serving(eng, toks)
-        del eng
-        torch.cuda.empty_cache()
-        kernels += check_flash(recorded, launches) \
-            + check_rglru(recorded, launches)
+        for arch in SERVE_ARCHS:
+            eng, reqs, launches, first = run_serving(arch)
+            recorded, toks, failed = check_serving_reference(eng, reqs,
+                                                             first)
+            failures += failed
+            profile_serving(eng, toks)
+            del eng, toks
+            torch.cuda.empty_cache()
+            kernels += MODEL_CHECKS[arch](recorded, launches)
+            del recorded
+            torch.cuda.empty_cache()
 
+    if failures:
+        raise AssertionError("; ".join(failures))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

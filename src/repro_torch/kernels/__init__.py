@@ -7,7 +7,9 @@ tensors and runs its plain PyTorch version on CPU tensors:
 - flash_attention: causal / sliding-window GQA online-softmax attention,
   in the model's (B, S, H, D) layout
 - rglru_scan:     the RG-LRU linear recurrence, sequential in time
+- rwkv6_scan:     the RWKV-6 WKV recurrence, sequential in time
+- moe_gmm:        grouped (per-expert) matmul and the MoE expert FFN
 
-``ref`` holds the last two's independent plain oracles, which are also
+``ref`` holds the last four's independent plain oracles, which are also
 their plain versions.
 """

@@ -97,7 +97,9 @@ def _attend(q, k, v, *, window: int, impl: str):
     if impl == "flash":
         return flash_kernel.flash_attention(q, k, v, causal=True,
                                             window=window)
-    if impl != "reference":
+    # "flash_moe" selects the grouped-matmul kernel for the MoE layers and
+    # the reference attention, as in the reference.
+    if impl not in ("reference", "flash_moe"):
         raise NotImplementedError(
             f"attention impl {impl!r} is not ported (the blocked and local "
             "stand-ins wait for ROADMAP A.11)")

@@ -82,6 +82,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (x * weight).to(dtype)
 
 
+def group_norm_heads(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, num_heads: int,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm with one group per head over the channel dim (RWKV
+    ln_x): float32 statistics, output in ``x``'s dtype."""
+    *lead, d = x.shape
+    xs = x.float().reshape(*lead, num_heads, d // num_heads)
+    mean = xs.mean(dim=-1, keepdim=True)
+    var = xs.var(dim=-1, unbiased=False, keepdim=True)
+    xs = ((xs - mean) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (xs * weight + bias).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (standard + M-RoPE), split halves
 # ---------------------------------------------------------------------------

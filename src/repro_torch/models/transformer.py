@@ -8,15 +8,16 @@ weight converter, which unstacks the reference's segments into it.
 
 Entry points: ``forward_prefill`` (last-token logits + caches) and
 ``forward_decode`` (one-token step); caches are a list with one entry per
-layer (``KVCache`` or ``RglruState``).
+layer (``KVCache``, ``RwkvState`` or ``RglruState``).
 
-Block kinds ported:
+Block kinds:
   attn    — RMSNorm -> GQA attention -> RMSNorm -> SwiGLU
   local   — same, sliding-window attention (cfg.window)
+  moe     — RMSNorm -> GQA attention -> RMSNorm -> MoE (+ shared experts)
+  dense0  — 'attn' with the MoE config's dense_d_ff (DeepSeekMoE layer 0)
+  rwkv    — RWKV-6 time-mix -> channel-mix (attention-free)
   rec     — RG-LRU recurrent block -> SwiGLU
-``moe`` and ``dense0`` wait for the grouped-matmul kernel (ROADMAP B.5),
-``rwkv`` for the RWKV-6 kernel (ROADMAP B.6); ``forward_train`` waits for
-the training slice.
+``forward_train`` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -29,20 +30,17 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import Params, embed_init, ones_init, rms_norm
 
-PORTED_KINDS = ("attn", "local", "rec")
-_WAITING = {"moe": "ROADMAP B.5 (grouped-matmul kernel)",
-            "dense0": "ROADMAP B.5 (grouped-matmul kernel)",
-            "rwkv": "ROADMAP B.6 (RWKV-6 scan kernel)"}
+PORTED_KINDS = ("attn", "local", "moe", "dense0", "rwkv", "rec")
+_ATTENTION_KINDS = ("attn", "local", "moe", "dense0")
 
 
 def check_kind(kind: str) -> None:
-    if kind in _WAITING:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet: {_WAITING[kind]}")
     if kind not in PORTED_KINDS:
         raise ValueError(kind)
 
@@ -117,12 +115,23 @@ class Model(nn.Module):
 
 def _init_sublayer(gen, kind: str, cfg: ArchConfig) -> dict:
     p: dict[str, Any] = {"ln1": ones_init(gen, (cfg.d_model,))}
-    if kind in ("attn", "local"):
+    if kind in _ATTENTION_KINDS:
         p["attn"] = attn_mod.init_attention(gen, cfg)
+        p["ln2"] = ones_init(gen, (cfg.d_model,))
+        if kind == "moe":
+            p["ffn"] = moe_mod.init_moe(gen, cfg)
+        elif kind == "dense0":
+            p["ffn"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.moe.dense_d_ff)
+        else:
+            p["ffn"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff)
+    elif kind == "rwkv":
+        p["tmix"] = rwkv_mod.init_rwkv(gen, cfg)
+        p["ln2"] = ones_init(gen, (cfg.d_model,))
+        p["cmix"] = rwkv_mod.init_rwkv_channel_mix(gen, cfg)
     else:
         p["rgl"] = rglru_mod.init_rglru(gen, cfg)
-    p["ln2"] = ones_init(gen, (cfg.d_model,))
-    p["ffn"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff)
+        p["ln2"] = ones_init(gen, (cfg.d_model,))
+        p["ffn"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff)
     return p
 
 
@@ -167,7 +176,7 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
     kind = p.kind
     window = cfg.window if kind == "local" else 0
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind in ("attn", "local"):
+    if kind in _ATTENTION_KINDS:
         if mode == "prefill":
             a, new_cache = attn_mod.attention_prefill(
                 p["attn"], h, cfg, positions, cache_len=cache_len,
@@ -175,17 +184,39 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
         else:
             a, new_cache = attn_mod.attention_decode(
                 p["attn"], h, cfg, position, cache, window=window)
-    else:
-        if mode == "prefill":
-            a, new_cache = rglru_mod.rglru_block(
-                p["rgl"], h, cfg, None, use_kernel=(impl == "flash"))
+        x = x + a
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if kind == "moe":
+            f, _ = moe_mod.moe_layer(p["ffn"], h2, cfg,
+                                     use_kernel=(impl == "flash_moe"))
         else:
-            a, new_cache = rglru_mod.rglru_block_decode(p["rgl"], h, cfg,
-                                                        cache)
+            f = mlp_mod.mlp(p["ffn"], h2)
+        return x + f, new_cache
+    if kind == "rwkv":
+        if mode == "decode":
+            a, new_cache = rwkv_mod.rwkv_time_mix_decode(p["tmix"], h, cfg,
+                                                         cache)
+        else:
+            # Prefill starts from zero token-shift and WKV state, as in
+            # the reference.
+            a, new_cache = rwkv_mod.rwkv_time_mix(
+                p["tmix"], h, cfg, None, use_kernel=(impl == "flash"))
+        x = x + a
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x_prev_c = new_cache.x_prev_c if mode == "decode" \
+            else x.new_zeros((x.shape[0], x.shape[-1]))
+        c = rwkv_mod.rwkv_channel_mix(p["cmix"], h2, x_prev_c)
+        new_cache = rwkv_mod.RwkvState(new_cache.wkv, new_cache.x_prev_t,
+                                       h2[:, -1])
+        return x + c, new_cache
+    if mode == "prefill":
+        a, new_cache = rglru_mod.rglru_block(
+            p["rgl"], h, cfg, None, use_kernel=(impl == "flash"))
+    else:
+        a, new_cache = rglru_mod.rglru_block_decode(p["rgl"], h, cfg, cache)
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_mod.mlp(p["ffn"], h2)
-    return x, new_cache
+    return x + mlp_mod.mlp(p["ffn"], h2), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -201,13 +232,21 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
     caches = []
     for kind in layer_kinds(cfg):
         check_kind(kind)
-        if kind in ("attn", "local"):
+        if kind in _ATTENTION_KINDS:
             size = min(cfg.window, cache_len) if kind == "local" \
                 else cache_len
             shape = (batch, size, cfg.num_kv_heads, hd)
             caches.append(KVCache(
                 torch.zeros(shape, dtype=dtype, device=device),
                 torch.zeros(shape, dtype=dtype, device=device), 0))
+        elif kind == "rwkv":
+            rd = cfg.recurrent.head_dim
+            caches.append(rwkv_mod.RwkvState(
+                torch.zeros((batch, cfg.d_model // rd, rd, rd),
+                            dtype=torch.float32, device=device),
+                torch.zeros((batch, cfg.d_model), dtype=dtype, device=device),
+                torch.zeros((batch, cfg.d_model), dtype=dtype,
+                            device=device)))
         else:
             w = cfg.recurrent.lru_width or cfg.d_model
             caches.append(rglru_mod.RglruState(

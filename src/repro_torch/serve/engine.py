@@ -42,8 +42,10 @@ class ServingEngine:
     the slot width, decoding advances all slots in lockstep and finished
     slots are refilled from the queue (continuous batching, lite).
 
-    ``impl`` selects the prefill route: ``"flash"`` (the default, the
-    hand-written attention and RG-LRU kernels) or ``"reference"``.
+    ``impl`` selects the prefill route: ``"flash"`` (the default: the
+    hand-written attention, RG-LRU and RWKV-6 kernels), ``"flash_moe"``
+    (the grouped-matmul kernel in the MoE layers, the reference attention)
+    or ``"reference"``.
     Weights are drawn on ``device`` from a ``torch.Generator`` seeded with
     ``seed`` and cast to the config's activation dtype."""
 
