@@ -8,7 +8,9 @@ Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit (``nvcc``). Phases, each printing lines of its numbers:
 
 1. build  — compile the hand-written kernels under
-   ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all at once);
+   ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all at once); log
+   ptxas' report for the tensor-core flash kernel and the HGMMA
+   (``wgmma``) instructions in its library, which must not be 0;
 2. load   — generate TPC-H ``lineitem`` (6,000,000 rows, one object: one
    paper worker's ~182 MiB SF1000 partition) and ``orders`` (1,500,000
    rows) into the port's object store;
@@ -29,26 +31,28 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    models at full width and depth (random bf16 weights from a seeded
    ``torch.Generator``): RecurrentGemma-2B (``impl="flash"``: the flash
    attention and RG-LRU kernels launch once per ``local`` / ``rec`` layer
-   and batch), RWKV-6 1.6B (``impl="flash"``: the RWKV-6 scan once per
-   ``rwkv`` layer and batch, 48 in all) and DeepSeekMoE-16B
-   (``impl="flash_moe"``: the grouped matmul three times per ``moe`` layer
-   and batch, 162 in all; the reference attention). No other model kernel
-   may launch. Each model's first batch's prefill is then run again on
-   the reference route (``impl="reference"``) and its last-token logits
-   held against the kernel route's (for DeepSeekMoE the top-k expert
-   choices of the two routes are compared too); three planted faults
-   show what RecurrentGemma's check can see; RWKV-6's two routes are
-   also held together with the model widened to float32, where two
-   planted faults (decays rounded to bf16, log_w doubled) must fail the
-   check; one prefill and one decode step are profiled;
+   and batch, every flash launch on the tensor-core route), RWKV-6 1.6B
+   (``impl="flash"``: the RWKV-6 scan once per ``rwkv`` layer and batch, 48
+   in all) and DeepSeekMoE-16B (``impl="flash_moe"``: the grouped matmul
+   three times per ``moe`` layer and batch, 162 in all; the reference
+   attention). No other model kernel may launch. Each model's first batch's
+   prefill is then run again on the reference route (``impl="reference"``)
+   and its last-token logits held against the kernel route's (for
+   DeepSeekMoE the top-k expert choices of the two routes are compared
+   too); three planted faults show what RecurrentGemma's check can see;
+   RWKV-6's two routes are also held together with the model widened to
+   float32, where two planted faults (decays rounded to bf16, log_w
+   doubled) must fail the check; one prefill and one decode step are
+   profiled;
 7. model kernels — after each model: its kernels against their plain
-   versions at the shapes its serving phase gave them, timed as in phase
-   5 (flash attention also at InternLM2's shape and in float32, where a
-   window edge off by one must show; the scans also at a strong decay,
-   where the RWKV-6 scan is held against the step oracle; the grouped
-   matmul also in float32); one planted fault per new kernel (the RWKV-6
-   scan without its bonus u, one expert's output of the grouped matmul
-   zeroed) must fail its check.
+   versions at the shapes its serving phase gave them, timed as in phase 5
+   (flash attention, bf16 on the tensor-core route, also at InternLM2's and
+   MusicGen-medium's shapes, D = 128 and 64, and in float32 on the
+   CUDA-core route, where a window edge off by one must show; the scans
+   also at a strong decay, where the RWKV-6 scan is held against the step
+   oracle; the grouped matmul also in float32); one planted fault per new
+   kernel (the RWKV-6 scan without its bonus u, one expert's output of the
+   grouped matmul zeroed) must fail its check.
 
 Ends with the card's name and power limit, a ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``. Any mismatch or exception exits
@@ -84,8 +88,11 @@ SERVE_ARCHS = tuple(SERVINGS)     # a quick call may serve only some
 SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN = 4, 4096, 4128
 SERVE_MIN_PROMPT = 1024           # prompt lengths drawn in [1024, 4096]
 SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_SEED = 8, 32, 0
-# InternLM2-1.8B's attention at a 4096-token prefill: (B, S, H, D), Hkv.
+# InternLM2-1.8B's and MusicGen-medium's attention at a 4096-token
+# prefill: (B, S, H, D), Hkv. With RecurrentGemma's D = 256 they launch
+# every head dim of the tensor-core flash kernel.
 INTERNLM2_ATTN = ((1, 4096, 16, 128), 8)
+MUSICGEN_ATTN = ((1, 4096, 24, 64), 24)
 # Largest |kernel route - reference route| last-token logit allowed, per
 # model: 2.5 times the largest difference between two sound routes of the
 # model measured on an H100 (reasons and readings in PERF.md). For an MoE
@@ -228,13 +235,26 @@ def _kernel_modules():
             "gmm": (mg, "GMM_LAUNCHES")}
 
 
+def _route_counters():
+    """Launches of a kernel's route, counted beside its kernel's own:
+    flash attention's tensor-core route (bf16 at D = 64, 128, 256)."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention_tc": (fa, "FLASH_ATTENTION_TC_LAUNCHES")}
+
+
 def launch_counts() -> dict:
     return {k: getattr(mod, attr)
             for k, (mod, attr) in _kernel_modules().items()}
 
 
+def route_counts() -> dict:
+    return {k: getattr(mod, attr)
+            for k, (mod, attr) in _route_counters().items()}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in _kernel_modules().values():
+    for mod, attr in (*_kernel_modules().values(),
+                      *_route_counters().values()):
         setattr(mod, attr, 0)
 
 
@@ -310,6 +330,7 @@ OWN_KERNELS = (("probe_range", "probe_range_kernel"),
                ("probe", "probe_kernel"),
                ("segment_reduce", "segment_reduce_pass"),
                ("flash_attention", "flash_attention_kernel"),
+               ("flash_attention", "flash_attention_wgmma_kernel"),
                ("rglru_scan", "rglru_scan_kernel"),
                ("rwkv6_scan", "rwkv6_scan_kernel"),
                ("gmm", "gmm_bf16_kernel"))
@@ -620,6 +641,7 @@ def run_serving(arch: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()                 # ... read just after
+    routes = route_counts()
     peak = torch.cuda.max_memory_allocated()
     eng.prefill, eng.decode = prefill.fn, decode.fn
     for r in done:
@@ -648,7 +670,7 @@ def run_serving(arch: str):
         requests_per_s=SERVE_REQUESTS / wall)
     log("serve_memory", arch=arch, max_memory_allocated=peak,
         max_memory_allocated_gib=peak / 2**30)
-    log("serve_launches", arch=arch, **launches)
+    log("serve_launches", arch=arch, **launches, **routes)
     log("serve_cost", arch=arch, **eng.cost_report(wall, len(done)))
     want = {k: kinds.count(kind) * per * batches
             for k, (kind, per) in kernels.items()}
@@ -659,6 +681,10 @@ def run_serving(arch: str):
     if any(launches[k] for k in launches if k not in want):
         raise AssertionError(f"{arch}: other kernels launched in serve: "
                              f"{launches}")
+    if routes["flash_attention_tc"] != launches["flash_attention"]:
+        raise AssertionError(f"{arch}: {routes['flash_attention_tc']} of "
+                             f"{launches['flash_attention']} flash launches "
+                             "took the tensor-core route")
     first = np.asarray([r.completion[0] for r in done[:SERVE_BATCH]])
     return eng, reqs, launches, first
 
@@ -988,11 +1014,16 @@ def check_flash(recorded, launches):
     (q, k, v), kw = recorded["flash_attention"]
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     bf16 = dict(dtype=torch.bfloat16, device=DEVICE, generator=gen)
-    (ib, isq, ih, idh), ihkv = INTERNLM2_ATTN
+
+    def model_shape(shape):
+        (mb, ms, mh, md), mhkv = shape
+        return (torch.randn((mb, ms, mh, md), **bf16),
+                torch.randn((mb, ms, mhkv, md), **bf16),
+                torch.randn((mb, ms, mhkv, md), **bf16), True, 0)
+
     cases = [("serve", q, k, v, kw.get("causal", True), kw.get("window", 0)),
-             ("internlm2_shape", torch.randn((ib, isq, ih, idh), **bf16),
-              torch.randn((ib, isq, ihkv, idh), **bf16),
-              torch.randn((ib, isq, ihkv, idh), **bf16), True, 0)]
+             ("internlm2_shape", *model_shape(INTERNLM2_ATTN)),
+             ("musicgen_shape", *model_shape(MUSICGEN_ATTN))]
     rows = []
     for case, q, k, v, causal, window in cases:
         b, sq, h, d = q.shape
@@ -1011,7 +1042,12 @@ def check_flash(recorded, launches):
         else:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=causal, enable_gqa=True)
-        got, want = kern(), plain()
+        tc0 = fa.FLASH_ATTENTION_TC_LAUNCHES
+        got = kern()
+        if fa.FLASH_ATTENTION_TC_LAUNCHES != tc0 + 1:
+            raise AssertionError(f"flash attention {case}: bf16 at D = {d} "
+                                 "did not take the tensor-core route")
+        want = plain()
         torch.cuda.synchronize()
         err = within(got, want, BF16_TOL)
         lib_err = float((lib().transpose(1, 2).float()
@@ -1023,7 +1059,7 @@ def check_flash(recorded, launches):
             * q.element_size()
         t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, bound_ms(nbytes)
         row = {"name": "flash_attention", "route": "cuda",
-               "source": "src/repro_torch/csrc/flash_attention.cu",
+               "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
                "replaces": "src/repro/kernels/flash_attention.py:22",
                "launches": launches["flash_attention"], "max_abs_err": err,
                "bound_ms": max(t_ops, t_bytes),
@@ -1033,6 +1069,7 @@ def check_flash(recorded, launches):
             case=case, shape=[b, sq, h, d], kv_heads=k.shape[2],
             causal=causal, window=window, band_pairs=pairs,
             flops=flops, bytes=nbytes, library_max_abs_err=lib_err,
+            kernel_route=fa._route(q.dtype, d),
             tflops_per_s=flops / row["ms"] / 1e9, **tight)
         if case == "serve":
             rows.append({key: row[key] for key in ROW_KEYS})
@@ -1334,6 +1371,27 @@ MODEL_CHECKS = {
 }
 
 
+def log_flash_build(report) -> None:
+    """The tensor-core flash kernel as built: ptxas' report (registers,
+    shared memory, spills) and, where the toolkit has ``cuobjdump``, the
+    count of HGMMA (``wgmma``) instructions in its library, which must not
+    be 0."""
+    from repro_torch.kernels import build as kbuild
+    text = report.get("flash_attention_wgmma", {}).get("log", "")
+    ptxas = [ln.strip() for ln in text.splitlines()
+             if "Used" in ln or "spill" in ln or "C75" in ln]
+    tool, hgmma = kbuild.cuda_tool("cuobjdump"), None
+    if tool is not None:
+        sass = subprocess.run(
+            [tool, "-sass", str(kbuild.library_path("flash_attention_wgmma"))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        hgmma = sass.count("HGMMA")
+    log("build_flash_wgmma", ptxas=ptxas, hgmma_instructions=hgmma)
+    if hgmma == 0:
+        raise AssertionError("the tensor-core flash library holds no HGMMA "
+                             "instruction")
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1359,6 +1417,7 @@ def main() -> int:
             if "registers" in ln]
     log("build", seconds=time.perf_counter() - t0,
         built=sorted(report), ptxas=regs)
+    log_flash_build(report)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True

@@ -24,20 +24,23 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
-SOURCES = ("hash_join", "segment_reduce", "flash_attention", "rglru_scan",
-           "rwkv6_scan", "moe_gmm")
+SOURCES = ("hash_join", "segment_reduce", "flash_attention",
+           "flash_attention_wgmma", "rglru_scan", "rwkv6_scan", "moe_gmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str | None:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``), or None."""
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = pathlib.Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    found = shutil.which("nvcc")
+    path = pathlib.Path(home) / "bin" / name
+    return str(path) if path.exists() else shutil.which(name)
+
+
+def _nvcc() -> str:
+    found = cuda_tool("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
                            "build only on a machine with the CUDA toolkit")

@@ -6,11 +6,17 @@ attention in float32 over KV tiles, with the TPU kernel's finite
 floor, so such a row gives 0. Takes the model layout, q (B, Sq, H, D) and
 k, v (B, Skv, Hkv, D), with kv head ``h // (H // Hkv)``; any Sq and Skv.
 
-On a CUDA tensor ``flash_attention`` launches the hand-written kernel
-(``csrc/flash_attention.cu``, counted in ``FLASH_ATTENTION_LAUNCHES``),
-which reads the tensors through their strides; on a CPU tensor it runs
-the plain version, which is the oracle ``ref.flash_attention_ref``
-itself: one full score matrix and a softmax, not the kernel's tiles.
+On a CUDA tensor ``flash_attention`` launches one of two hand-written
+kernels, both reading the tensors through their strides, chosen by
+``_route`` from the dtype and head dim alone: bf16 with a head dim of 64,
+128 or 256 takes the tensor-core kernel (``csrc/flash_attention_wgmma.cu``,
+``"tc"``: ``wgmma`` products, TMA-fed K/V tiles); float32 and every other
+head dim (StableLM-3B's 80 among them) take the CUDA-core kernel
+(``csrc/flash_attention.cu``, ``"fma"``: float32 FMAs). Every launch
+counts in ``FLASH_ATTENTION_LAUNCHES``, the tensor-core ones also in
+``FLASH_ATTENTION_TC_LAUNCHES``. On a CPU tensor it runs the plain
+version, which is the oracle ``ref.flash_attention_ref`` itself: one full
+score matrix and a softmax, not the kernels' tiles.
 """
 from __future__ import annotations
 
@@ -23,14 +29,24 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
 __all__ = ["flash_attention", "flash_attention_plain",
-           "FLASH_ATTENTION_LAUNCHES"]
+           "FLASH_ATTENTION_LAUNCHES", "FLASH_ATTENTION_TC_LAUNCHES"]
 
 MAX_HEAD_DIM = 256
+# Head dims of the tensor-core kernel (one template each).
+TC_HEAD_DIMS = (64, 128, 256)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches (one per wrapper call that reaches the card).
+# Kernel launches (one per wrapper call that reaches the card), and those
+# of them on the tensor-core route.
 FLASH_ATTENTION_LAUNCHES = 0
+FLASH_ATTENTION_TC_LAUNCHES = 0
+
+
+def _route(dtype, d: int) -> str:
+    """The kernel for q of ``dtype`` and head dim ``d``: ``"tc"`` (bf16 on
+    the tensor cores) or ``"fma"`` (float32 FMAs on the CUDA cores)."""
+    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "fma"
 
 
 def _check(q, k, v):
@@ -51,48 +67,62 @@ def _check(q, k, v):
         raise ValueError("q, k and v lie on different devices")
 
 
-_LIB = None
+_LIBS = {}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = kbuild.load("flash_attention")
+def _lib(route: str):
+    lib = _LIBS.get(route)
+    if lib is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.repro_flash_attention.argtypes = [p, p, p, p, p] + [i32] * 8 \
-            + [ctypes.c_float, i32, p]
-        lib.repro_flash_attention.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        if route == "tc":
+            lib = kbuild.load("flash_attention_wgmma")
+            fn = lib.repro_flash_attention_wgmma
+            fn.argtypes = [p] * 5 + [i32] * 8 + [ctypes.c_float, p]
+        else:
+            lib = kbuild.load("flash_attention")
+            fn = lib.repro_flash_attention
+            fn.argtypes = [p] * 5 + [i32] * 8 + [ctypes.c_float, i32, p]
+        fn.restype = ctypes.c_int
+        _LIBS[route] = lib
+    return lib
 
 
 def _flash_cuda(q, k, v, causal: bool, window: int):
-    global FLASH_ATTENTION_LAUNCHES
+    global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_TC_LAUNCHES
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if d % 4 or d > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernel takes a head dim that is a "
                          f"multiple of 4 up to {MAX_HEAD_DIM}, not {d}")
+    route = _route(q.dtype, d)
+    # The CUDA-core kernel reads rows as 4-element vectors; TMA needs
+    # 16-byte strides (8 bf16).
+    align = 8 if route == "tc" else 4
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = []
     for t in (q, k, v, out):
         if t.stride(3) != 1:
             raise ValueError("flash_attention needs a contiguous last dim")
-        # Rows are read as 4-element vectors: aligned base and strides.
-        if t.data_ptr() % 16 or any(s % 4 for s in t.stride()[:3]):
+        if t.data_ptr() % 16 or any(s % align for s in t.stride()[:3]):
             raise ValueError("flash_attention needs 16-byte aligned rows")
         strides += [t.stride(0), t.stride(1), t.stride(2)]
     if sq == 0 or b == 0:
         return out
     st = (ctypes.c_int64 * 12)(*strides)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st)
     with torch.cuda.device(q.device):
-        rc = _lib().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st,
-            b, sq, skv, h, h // hkv, d, int(causal), int(window),
-            1.0 / math.sqrt(d), _DTYPES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kbuild.check(rc, "repro_flash_attention")
+        if route == "tc":
+            rc = _lib(route).repro_flash_attention_wgmma(
+                *ptrs, b, sq, skv, h, hkv, d, int(causal), int(window),
+                1.0 / math.sqrt(d), stream)
+        else:
+            rc = _lib(route).repro_flash_attention(
+                *ptrs, b, sq, skv, h, h // hkv, d, int(causal), int(window),
+                1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
+    kbuild.check(rc, f"flash_attention ({route} route)")
     FLASH_ATTENTION_LAUNCHES += 1
+    FLASH_ATTENTION_TC_LAUNCHES += int(route == "tc")
     return out
 
 
