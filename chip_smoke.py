@@ -9,8 +9,9 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
 
 1. build  — compile the hand-written kernels under
    ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all at once); log
-   ptxas' report for the tensor-core flash kernel and the HGMMA
-   (``wgmma``) instructions in its library, which must not be 0;
+   ptxas' report for the two tensor-core kernels (flash attention, the
+   grouped matmul) and the HGMMA (``wgmma``) instructions in each library,
+   which must not be 0; neither report may show spills;
 2. load   — generate TPC-H ``lineitem`` (6,000,000 rows, one object: one
    paper worker's ~182 MiB SF1000 partition) and ``orders`` (1,500,000
    rows) into the port's object store;
@@ -25,7 +26,8 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
 5. kernels — each query kernel's wrapper against its plain PyTorch
    version on the card at the shapes the queries gave it, timed with CUDA
    events (median and spread of five batches) beside its bound, the plain
-   version and one PyTorch library call;
+   version and one PyTorch library call; the probe's host time per step of
+   its launch path (``perf_counter``);
 6. serve  — ``ServingEngine`` answers 8 requests of 1,024-4,096 prompt
    tokens and 32 new tokens each, in two batches of 4, with each of three
    models at full width and depth (random bf16 weights from a seeded
@@ -34,8 +36,9 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    and batch, every flash launch on the tensor-core route), RWKV-6 1.6B
    (``impl="flash"``: the RWKV-6 scan once per ``rwkv`` layer and batch, 48
    in all) and DeepSeekMoE-16B (``impl="flash_moe"``: the grouped matmul
-   three times per ``moe`` layer and batch, 162 in all; the reference
-   attention). No other model kernel may launch. Each model's first batch's
+   three times per ``moe`` layer and batch, 162 in all, every one on the
+   tensor-core route; the reference attention). No other model kernel may
+   launch. Each model's first batch's
    prefill is then run again on the reference route (``impl="reference"``)
    and its last-token logits held against the kernel route's (for
    DeepSeekMoE the top-k expert choices of the two routes are compared
@@ -50,9 +53,12 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    MusicGen-medium's shapes, D = 128 and 64, and in float32 on the
    CUDA-core route, where a window edge off by one must show; the scans
    also at a strong decay, where the RWKV-6 scan is held against the step
-   oracle; the grouped matmul also in float32); one planted fault per new
-   kernel (the RWKV-6 scan without its bonus u, one expert's output of the
-   grouped matmul zeroed) must fail its check.
+   oracle; the grouped matmul also in float32, with its largest error in
+   each 64-column block of the output, and at the gate/up shape on its
+   ``mma.sync`` route too, timed as the earlier kernel); planted faults
+   must fail their checks (the RWKV-6 scan without its bonus u; one
+   expert's output of the grouped matmul zeroed, and columns 64-127 of
+   every 128 of it zeroed).
 
 Ends with the card's name and power limit, a ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``. Any mismatch or exception exits
@@ -62,6 +68,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -237,9 +244,17 @@ def _kernel_modules():
 
 def _route_counters():
     """Launches of a kernel's route, counted beside its kernel's own:
-    flash attention's tensor-core route (bf16 at D = 64, 128, 256)."""
+    flash attention's tensor-core route (bf16 at D = 64, 128, 256) and
+    the grouped matmul's (bf16 with D and F multiples of 8)."""
     from repro_torch.kernels import flash_attention as fa
-    return {"flash_attention_tc": (fa, "FLASH_ATTENTION_TC_LAUNCHES")}
+    from repro_torch.kernels import moe_gmm as mg
+    return {"flash_attention_tc": (fa, "FLASH_ATTENTION_TC_LAUNCHES"),
+            "gmm_tc": (mg, "GMM_TC_LAUNCHES")}
+
+
+# The kernels whose every launch in ``serve`` must take the tensor-core
+# route, and the route's counter.
+TC_ROUTES = {"flash_attention": "flash_attention_tc", "gmm": "gmm_tc"}
 
 
 def launch_counts() -> dict:
@@ -333,7 +348,8 @@ OWN_KERNELS = (("probe_range", "probe_range_kernel"),
                ("flash_attention", "flash_attention_wgmma_kernel"),
                ("rglru_scan", "rglru_scan_kernel"),
                ("rwkv6_scan", "rwkv6_scan_kernel"),
-               ("gmm", "gmm_bf16_kernel"))
+               ("gmm", "gmm_bf16_kernel"),
+               ("gmm", "gmm_wgmma_kernel"))
 
 
 def own_kernel(key: str):
@@ -465,21 +481,20 @@ def check_probes(recorded, launches):
     out = []
     for kind in ("probe", "probe_range"):
         (build, keys), kw = recorded[kind]
-        scalars, starts = kw["scalars"], kw["starts"]
+        table = kw["table"]
+        scalars = (table.bias, table.shift)
         n, s = keys.numel(), build.numel()
         if kind == "probe":
-            kern = lambda: hj.sorted_probe(build, keys, scalars=scalars,  # noqa: E731
-                                           starts=starts)
+            kern = lambda: hj.sorted_probe(build, keys, table=table)  # noqa: E731
             plain = lambda: hj.sorted_probe_plain(build, keys, scalars,  # noqa: E731
-                                                  starts)
+                                                  table.starts)
             lib = lambda: torch.searchsorted(build, keys)  # noqa: E731
             out_bytes = 4 + 1
         else:
             kern = lambda: hj.sorted_probe_range(build, keys,  # noqa: E731
-                                                 scalars=scalars,
-                                                 starts=starts)
+                                                 table=table)
             plain = lambda: hj.sorted_probe_range_plain(  # noqa: E731
-                build, keys, scalars, starts)
+                build, keys, scalars, table.starts)
             lib = lambda: (torch.searchsorted(build, keys),  # noqa: E731
                            torch.searchsorted(build, keys, right=True))
             out_bytes = 4 + 4 + 1
@@ -681,10 +696,11 @@ def run_serving(arch: str):
     if any(launches[k] for k in launches if k not in want):
         raise AssertionError(f"{arch}: other kernels launched in serve: "
                              f"{launches}")
-    if routes["flash_attention_tc"] != launches["flash_attention"]:
-        raise AssertionError(f"{arch}: {routes['flash_attention_tc']} of "
-                             f"{launches['flash_attention']} flash launches "
-                             "took the tensor-core route")
+    for k in want:
+        if k in TC_ROUTES and routes[TC_ROUTES[k]] != launches[k]:
+            raise AssertionError(f"{arch}: {routes[TC_ROUTES[k]]} of "
+                                 f"{launches[k]} {k} launches took the "
+                                 "tensor-core route")
     first = np.asarray([r.completion[0] for r in done[:SERVE_BATCH]])
     return eng, reqs, launches, first
 
@@ -1293,11 +1309,27 @@ def check_rwkv6(recorded, launches):
     return [{key: row[key] for key in ROW_KEYS}]
 
 
+def column_blocks(err, width: int = 64) -> list[float]:
+    """The largest of ``err`` (E, C, F) in each ``width``-column block of
+    the output, left to right."""
+    import torch.nn.functional as F
+    cols = err.amax(dim=(0, 1))
+    pad = -cols.numel() % width
+    return F.pad(cols, (0, pad), value=float("-inf")).view(-1, width) \
+        .amax(dim=1).tolist()
+
+
 def check_gmm(recorded, launches):
     """The grouped matmul at each shape the serving path gave it (gate/up,
-    then down) against its plain version and ``torch.bmm``; in float32
-    against the float32 plain version, with the bf16 result within one
-    rounding of that; one expert's output zeroed must fail the check."""
+    then down), on the tensor-core route, against its plain version and
+    ``torch.bmm``, with the largest error in each 64-column block of the
+    output; in float32 against the float32 plain version, with the bf16
+    result within one rounding of that. Two planted faults must fail the
+    check: one expert's output zeroed, and columns 64-127 of every 128
+    zeroed (a wrong leading byte offset in the B descriptor corrupts every
+    swizzle atom of a tile after its first). At the gate/up shape the
+    ``mma.sync`` route, the earlier kernel, is held to the same check and
+    timed."""
     import torch
     from repro_torch.kernels import moe_gmm as mg
     rows = []
@@ -1308,9 +1340,15 @@ def check_gmm(recorded, launches):
         kern = lambda: mg.gmm(x, w)  # noqa: E731
         plain = lambda: mg.gmm_plain(x, w)  # noqa: E731
         lib = lambda: torch.bmm(x, w)  # noqa: E731
-        got, want = kern(), plain()
+        tc0 = mg.GMM_TC_LAUNCHES
+        got = kern()
+        if mg.GMM_TC_LAUNCHES != tc0 + 1:
+            raise AssertionError(f"gmm {[e, c, d, f]}: bf16 did not take the "
+                                 "tensor-core route")
+        want = plain()
         torch.cuda.synchronize()
         err = within(got, want, BF16_TOL)
+        blocks = column_blocks((got.float() - want.float()).abs())
         # Float32: the kernel against the plain version, and the bf16
         # result against that within one rounding; the float32 part of
         # each bound scales with the size of the summed terms, |x| @ |w|.
@@ -1322,41 +1360,79 @@ def check_gmm(recorded, launches):
                             - GMM_F32_TOL * size).max())
         f32_err = float((got32 - want32).abs().max())
         del got32
-        bf16_excess = float(((got.float() - want32).abs()
-                             - BF16_ROUND * want32.abs()
-                             - GMM_F32_TOL * size).max())
-        del size
+        bf16_over = (got.float() - want32).abs() \
+            - BF16_ROUND * want32.abs() - GMM_F32_TOL * size
+        bf16_excess = float(bf16_over.max())       # the check: every output
+        # The log: outputs that sum any term (an empty capacity row's read
+        # 0 and would hide the margin of the rest).
+        bf16_blocks = column_blocks(torch.where(size > 0, bf16_over,
+                                                float("-inf")))
+        del size, bf16_over
         if not (f32_excess <= 0 and bf16_excess <= 0):
             raise AssertionError(f"gmm against float32: excess over the "
                                  f"bound {f32_excess} (float32 kernel), "
                                  f"{bf16_excess} (bf16 kernel)")
         busiest = int(want32.abs().amax(dim=(1, 2)).argmax())
         del want32
+        planted = {}
         bad = got.clone()
         bad[busiest] = 0
-        planted = float((bad.float() - want.float()).abs().max())
+        planted["expert_zeroed"] = float((bad.float() - want.float())
+                                         .abs().max())
         if not fails_check(lambda: within(bad, want, BF16_TOL)):
             raise AssertionError(f"gmm: the check missed the planted fault "
                                  f"(expert {busiest} zeroed)")
+        bad = got.clone()
+        bad[..., torch.arange(f, device=got.device) % 128 >= 64] = 0
+        planted["tile_columns_64_127_zeroed"] = float(
+            (bad.float() - want.float()).abs().max())
+        if not fails_check(lambda: within(bad, want, BF16_TOL)):
+            raise AssertionError("gmm: the check missed the planted fault "
+                                 "(columns 64-127 of every tile zeroed)")
         del bad
+        earlier = {}
+        if n == 0:
+            # The mma.sync kernel, through _route's other bf16 branch.
+            with replaced(mg, "_route", lambda r: lambda *a: "mma"):
+                tc0 = mg.GMM_TC_LAUNCHES
+                got_mma = kern()
+                torch.cuda.synchronize()
+                if mg.GMM_TC_LAUNCHES != tc0:
+                    raise AssertionError("gmm: the mma route took the "
+                                         "tensor-core kernel")
+                per = time_spread(kern)
+                earlier = {"mma_route_max_abs_err": within(got_mma, want,
+                                                           BF16_TOL),
+                           "mma_route_ms": per[len(per) // 2],
+                           "mma_route_ms_min": per[0],
+                           "mma_route_ms_max": per[-1]}
+                del got_mma
         flops = 2.0 * e * c * d * f
         nbytes = (x.numel() + w.numel() + got.numel()) * x.element_size()
         t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, bound_ms(nbytes)
         row = {"name": "gmm", "route": "cuda",
-               "source": "src/repro_torch/csrc/moe_gmm.cu",
+               "source": "src/repro_torch/csrc/moe_gmm_wgmma.cu",
                "replaces": "src/repro/kernels/moe_gmm.py:17",
                "launches": launches["gmm"], "max_abs_err": err,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                **kernel_times(kern, plain, lib)}
+        if earlier:
+            earlier["mma_route_tflops_per_s"] = \
+                flops / earlier["mma_route_ms"] / 1e9
         log("kernel" if n == 0 else "kernel_sweep", **row,
-            shape=[e, c, d, f], dtype=str(x.dtype), flops=flops,
+            shape=[e, c, d, f], dtype=str(x.dtype),
+            kernel_route=mg._route(x.dtype, d, f), flops=flops,
             bytes=nbytes, bound_bytes_ms=t_bytes,
-            tflops_per_s=flops / row["ms"] / 1e9, f32_max_abs_err=f32_err,
+            tflops_per_s=flops / row["ms"] / 1e9,
+            library_tflops_per_s=flops / row["library_ms"] / 1e9,
+            column_block_max_abs_err=blocks,
+            column_block_bf16_vs_f32_excess=bf16_blocks,
+            f32_max_abs_err=f32_err,
             f32_tol=GMM_F32_TOL, f32_excess_over_bound=f32_excess,
             bf16_vs_f32_excess_over_bound=bf16_excess,
             planted_expert_zeroed=busiest,
-            planted_max_abs_diff=planted, planted_seen=True,
+            planted_max_abs_diff=planted, planted_seen=True, **earlier,
             empty_slots=int((x.abs().amax(dim=2) == 0).sum()))
         if n == 0:
             rows.append({key: row[key] for key in ROW_KEYS})
@@ -1371,25 +1447,36 @@ MODEL_CHECKS = {
 }
 
 
-def log_flash_build(report) -> None:
-    """The tensor-core flash kernel as built: ptxas' report (registers,
+WGMMA_LIBS = ("flash_attention_wgmma", "moe_gmm_wgmma")
+
+
+def log_wgmma_builds(report) -> None:
+    """Each tensor-core library as built: ptxas' report (registers,
     shared memory, spills) and, where the toolkit has ``cuobjdump``, the
-    count of HGMMA (``wgmma``) instructions in its library, which must not
-    be 0."""
+    count of HGMMA (``wgmma``) instructions in it, which must not be 0;
+    ptxas' report must show no spilled bytes."""
     from repro_torch.kernels import build as kbuild
-    text = report.get("flash_attention_wgmma", {}).get("log", "")
-    ptxas = [ln.strip() for ln in text.splitlines()
-             if "Used" in ln or "spill" in ln or "C75" in ln]
-    tool, hgmma = kbuild.cuda_tool("cuobjdump"), None
-    if tool is not None:
-        sass = subprocess.run(
-            [tool, "-sass", str(kbuild.library_path("flash_attention_wgmma"))],
-            capture_output=True, text=True, timeout=300, check=True).stdout
-        hgmma = sass.count("HGMMA")
-    log("build_flash_wgmma", ptxas=ptxas, hgmma_instructions=hgmma)
-    if hgmma == 0:
-        raise AssertionError("the tensor-core flash library holds no HGMMA "
-                             "instruction")
+    tool = kbuild.cuda_tool("cuobjdump")
+    for name in WGMMA_LIBS:
+        text = report.get(name, {}).get("log", "")
+        ptxas = [ln.strip() for ln in text.splitlines()
+                 if "Used" in ln or "spill" in ln or "C75" in ln]
+        spilled = sum(int(b) for b in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", text))
+        hgmma = None
+        if tool is not None:
+            sass = subprocess.run(
+                [tool, "-sass", str(kbuild.library_path(name))],
+                capture_output=True, text=True, timeout=300,
+                check=True).stdout
+            hgmma = sass.count("HGMMA")
+        log("build_wgmma", library=name, ptxas=ptxas,
+            hgmma_instructions=hgmma, spilled_bytes=spilled)
+        if hgmma == 0:
+            raise AssertionError(f"the tensor-core library {name} holds no "
+                                 "HGMMA instruction")
+        if spilled:
+            raise AssertionError(f"ptxas spilled {spilled} bytes in {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -1417,7 +1504,7 @@ def main() -> int:
             if "registers" in ln]
     log("build", seconds=time.perf_counter() - t0,
         built=sorted(report), ptxas=regs)
-    log_flash_build(report)
+    log_wgmma_builds(report)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True

@@ -23,7 +23,8 @@
 // NB - 1: the build-key span may exceed int31, so the wrapped int32
 // difference is reinterpreted as uint32 (two's complement), and keys below
 // bias wrap to huge offsets that land in the last bucket, where no build
-// key can equal them. `match` is written as uint8 and viewed as bool.
+// key can equal them. `match` is written as uint8 into a bool tensor
+// (one byte, 0 or 1).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -104,15 +105,41 @@ unsigned grid_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
+// Makes `device` current for a launch, and puts the caller's device back
+// when it goes out of scope. The common case, `device` already current,
+// costs one cudaGetDevice.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ != cudaSuccess || prev_ == device) {
+      prev_ = -1;                   // nothing to put back
+    } else {
+      err_ = cudaSetDevice(device);
+    }
+  }
+  ~DeviceScope() {
+    if (prev_ >= 0) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = -1;
+  cudaError_t err_;
+};
+
 }  // namespace
 
-// Plain C entry points (bound with ctypes). Each launches on `stream`,
-// never synchronises, and returns cudaGetLastError() (0 on success). The
-// caller guarantees n > 0 and s > 0: a grid of 0 blocks is a launch error.
+// Plain C entry points (bound with ctypes). Each launches on `stream` of
+// CUDA device `device`, never synchronises, and returns the CUDA error of
+// selecting the device or of the launch (0 on success). The caller
+// guarantees n > 0 and s > 0: a grid of 0 blocks is a launch error.
 extern "C" int repro_probe(const void* starts, const void* build,
                            const void* keys, void* pos, void* match,
                            int64_t n, int32_t s, int32_t bias, int32_t shift,
-                           void* stream) {
+                           int32_t device, void* stream) {
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   probe_kernel<<<grid_for(n), kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(build),
@@ -124,7 +151,10 @@ extern "C" int repro_probe(const void* starts, const void* build,
 extern "C" int repro_probe_range(const void* starts, const void* build,
                                  const void* keys, void* lo, void* hi,
                                  void* match, int64_t n, int32_t s,
-                                 int32_t bias, int32_t shift, void* stream) {
+                                 int32_t bias, int32_t shift, int32_t device,
+                                 void* stream) {
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   probe_range_kernel<<<grid_for(n), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(build),

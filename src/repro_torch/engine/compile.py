@@ -700,7 +700,7 @@ class _FusedTail:
         border = np.argsort(rkeys, kind="stable")
         bs = rkeys[border].astype(np.int32)
         has_dups = bool(bs[1:].size and np.any(bs[1:] == bs[:-1]))
-        scalars, starts = hj_kernel.prepare_buckets(bs)
+        table = hj_kernel.probe_table(bs, device)
         # One gather per needed payload column: the host copy serves the
         # pass-through outputs (original dtype preserved), the device copy
         # feeds the downstream ops.
@@ -711,8 +711,8 @@ class _FusedTail:
                 bpay_out[c] = v
             if c in right_in:
                 bpay_dev[c] = _to_device(v, device)
-        prep = (torch.from_numpy(bs).to(device), has_dups, scalars,
-                torch.from_numpy(starts).to(device), bpay_dev, bpay_out)
+        prep = (torch.from_numpy(bs).to(device), has_dups, table, bpay_dev,
+                bpay_out)
         self._build_prep = (rkeys, prep_key, prep)
         return prep
 
@@ -751,17 +751,16 @@ class _FusedTail:
                                    order, None)
             return self._emit(out, counts, r)
 
-        (bkeys, has_dups, scalars, starts, bpay_dev,
+        (bkeys, has_dups, table, bpay_dev,
          bpay_out) = self._prepare_build(build, right_in, final_sources,
                                          device)
         lkeys = left_cols[self.join["left_key"]]
         if has_dups:
             return self._run_dup(batch, build, ops_host, final_sources,
                                  sources_host, left_in, right_in, left_cols,
-                                 lits_t, bkeys, scalars, starts, bpay_dev,
-                                 bpay_out, n, r, device)
-        pos, match = hj_kernel.sorted_probe(bkeys, lkeys, scalars=scalars,
-                                            starts=starts)
+                                 lits_t, bkeys, table, bpay_dev, bpay_out, n,
+                                 r, device)
+        pos, match = hj_kernel.sorted_probe(bkeys, lkeys, table=table)
         env = dict(left_cols)
         gather = pos.to(torch.int64)
         for c in right_in:
@@ -776,13 +775,12 @@ class _FusedTail:
         return self._emit(out, counts, r)
 
     def _run_dup(self, batch, build, ops_host, sources, sources_host,
-                 left_in, right_in, left_cols, lits_t, bkeys, scalars,
-                 starts, bpay_dev, bpay_out, n, r, device):
+                 left_in, right_in, left_cols, lits_t, bkeys, table,
+                 bpay_dev, bpay_out, n, r, device):
         """Duplicate-build-key join: range probe and counts, host prefix,
         device expansion (see the section comment above)."""
         lo, hi, match = hj_kernel.sorted_probe_range(
-            bkeys, left_cols[self.join["left_key"]], scalars=scalars,
-            starts=starts)
+            bkeys, left_cols[self.join["left_key"]], table=table)
         counts = torch.where(match, hi - lo, 0)
         prefix = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(_to_host(counts), dtype=np.int64, out=prefix[1:])

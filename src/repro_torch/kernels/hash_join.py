@@ -14,8 +14,15 @@ does) and every probe key is located with a bucket-accelerated search:
   upper bound of the key's run ``[lo, hi)`` (``hi - lo`` is the match
   multiplicity) and the match flag.
 
+``probe_table`` runs ``prepare_buckets`` once per build side and holds
+what every launch needs (``ProbeTable``: the bucket starts on the
+build's device, ``bias`` and ``shift`` as ints, the device's index), so a
+probe call that is handed one does no host-to-device copy and no numpy
+conversion; without one, the wrappers build it per call.
+
 On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/hash_join.cu``) and counts the launch in ``PROBE_LAUNCHES`` /
+(``csrc/hash_join.cu``, which selects the device itself, so no device
+context is entered) and counts the launch in ``PROBE_LAUNCHES`` /
 ``PROBE_RANGE_LAUNCHES``; on a CPU tensor it runs the plain PyTorch
 version beside it, which computes the same outputs bit for bit (the
 global ``torch.searchsorted`` bound clipped into the key's bucket slice
@@ -24,6 +31,7 @@ IS the bucket-local bound the kernel searches for).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -95,106 +103,133 @@ def sorted_probe_range_plain(build_sorted, keys, scalars, starts):
     return lo.to(torch.int32), hi.to(torch.int32), match
 
 
-def _prepare(build_sorted, keys, scalars, starts):
+class ProbeTable(NamedTuple):
+    """What a probe launch needs of one sorted build side: the NB+1
+    bucket ``starts`` (int32, contiguous, on the build's device), ``bias``
+    and ``shift`` as Python ints, and ``device_index``, the CUDA device's
+    index (-1 on the CPU)."""
+    starts: torch.Tensor
+    bias: int
+    shift: int
+    device_index: int
+
+
+def probe_table(build_sorted: np.ndarray, device) -> ProbeTable:
+    """The bucket table of a sorted int32 key array (``prepare_buckets``)
+    with its starts on ``device``: made once per build side and passed to
+    every ``sorted_probe`` / ``sorted_probe_range`` of it as ``table``."""
+    scalars, starts = prepare_buckets(build_sorted)
+    starts = torch.as_tensor(starts, device=device).contiguous()
+    return ProbeTable(starts, int(scalars[0]), int(scalars[1]),
+                      starts.get_device())
+
+
+def _resolve(build_sorted, keys, table):
+    """Checks the inputs; returns the bucket table (``table`` as given,
+    or, without one, one made from the build keys) and the keys' device
+    index (-1 on the CPU)."""
     for name, t in (("build_sorted", build_sorted), ("keys", keys)):
         if t.dtype != torch.int32 or t.dim() != 1:
             raise ValueError(f"{name} must be a 1-D int32 tensor, got "
                              f"{t.dtype} of shape {tuple(t.shape)}")
-    if build_sorted.device != keys.device:
+    dev = keys.get_device()
+    if build_sorted.get_device() != dev:
         raise ValueError("build_sorted and keys lie on different devices")
-    if scalars is None:
-        scalars, starts = prepare_buckets(build_sorted.cpu().numpy())
-    starts = torch.as_tensor(starts, dtype=torch.int32, device=keys.device)
-    if starts.shape != (NB + 1,):
-        raise ValueError(f"starts must have shape ({NB + 1},)")
-    return np.asarray(scalars), starts
+    if table is None:
+        table = probe_table(build_sorted.cpu().numpy(), keys.device)
+    elif table.device_index != dev:
+        raise ValueError("the bucket table lies on another device than "
+                         "the keys")
+    return table, dev
 
 
-def _cuda_args(build_sorted, keys, starts):
-    for t in (build_sorted, keys, starts):
-        if not t.is_contiguous():
-            raise ValueError("probe inputs must be contiguous")
+def _cuda_args(build_sorted, keys):
+    if not (build_sorted.is_contiguous() and keys.is_contiguous()):
+        raise ValueError("probe inputs must be contiguous")
     if keys.shape[0] > _INT32_MAX or build_sorted.shape[0] > _INT32_MAX:
         raise ValueError("probe sizes must fit int32")
 
 
-_LIB = None
+_PROBE = _PROBE_RANGE = None
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+def _fns():
+    """The two C entry points, bound once."""
+    global _PROBE, _PROBE_RANGE
+    if _PROBE is None:
         lib = kbuild.load("hash_join")
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-        lib.repro_probe.argtypes = [p, p, p, p, p, i64, i32, i32, i32, p]
-        lib.repro_probe.restype = ctypes.c_int
+        lib.repro_probe.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i32,
+                                    p]
         lib.repro_probe_range.argtypes = [p, p, p, p, p, p, i64, i32, i32,
-                                          i32, p]
-        lib.repro_probe_range.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+                                          i32, i32, p]
+        lib.repro_probe.restype = lib.repro_probe_range.restype = ctypes.c_int
+        _PROBE, _PROBE_RANGE = lib.repro_probe, lib.repro_probe_range
+    return _PROBE, _PROBE_RANGE
 
 
-def sorted_probe(build_sorted, keys, *, scalars=None, starts=None):
+def sorted_probe(build_sorted, keys, *, table=None):
     """Lower-bound probe of int32 ``keys`` (n,) into sorted int32
     ``build_sorted`` (s,), both on one device.
 
     Returns ``(pos, match)``: ``pos[i]`` (int32) is the first build
     position whose key equals ``keys[i]`` (clipped into range when there
     is no match) and ``match[i]`` (bool) whether the key exists. The
-    bucket structure (``prepare_buckets``) may be passed in to amortize
-    it across calls; it is built on the fly otherwise.
+    bucket table is ``table`` (``probe_table``, made once per build side)
+    or, without one, is made from ``build_sorted`` on every call.
     """
     global PROBE_LAUNCHES
-    scalars, starts = _prepare(build_sorted, keys, scalars, starts)
+    table, dev = _resolve(build_sorted, keys, table)
     n, s = keys.shape[0], build_sorted.shape[0]
     if n == 0 or s == 0:      # no match; never launch an empty grid
         return (torch.zeros(n, dtype=torch.int32, device=keys.device),
                 torch.zeros(n, dtype=torch.bool, device=keys.device))
-    if keys.device.type == "cpu":
-        return sorted_probe_plain(build_sorted, keys, scalars, starts)
-    pos = torch.empty(n, dtype=torch.int32, device=keys.device)
-    match = torch.empty(n, dtype=torch.uint8, device=keys.device)
-    _cuda_args(build_sorted, keys, starts)
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().repro_probe(
-            starts.data_ptr(), build_sorted.data_ptr(), keys.data_ptr(),
-            pos.data_ptr(), match.data_ptr(), n, s, int(scalars[0]),
-            int(scalars[1]), stream)
+    if dev < 0:
+        return sorted_probe_plain(build_sorted, keys,
+                                  (table.bias, table.shift), table.starts)
+    _cuda_args(build_sorted, keys)
+    pos = torch.empty_like(keys)
+    match = torch.empty_like(keys, dtype=torch.bool)
+    rc = _fns()[0](
+        table.starts.data_ptr(), build_sorted.data_ptr(), keys.data_ptr(),
+        pos.data_ptr(), match.data_ptr(), n, s, table.bias, table.shift,
+        table.device_index,
+        torch.cuda.current_stream(table.device_index).cuda_stream)
     kbuild.check(rc, "repro_probe")
     PROBE_LAUNCHES += 1
-    return pos, match.view(torch.bool)
+    return pos, match
 
 
-def sorted_probe_range(build_sorted, keys, *, scalars=None, starts=None):
+def sorted_probe_range(build_sorted, keys, *, table=None):
     """Range probe of int32 ``keys`` (n,) into sorted int32
     ``build_sorted`` (s,), both on one device.
 
     Returns ``(lo, hi, match)``: ``[lo[i], hi[i])`` is the contiguous run
     of build positions whose key equals ``keys[i]`` (``hi - lo`` is the
     duplicate multiplicity, 0 when absent) and ``match[i]`` whether the
-    key exists. Backs the compiled duplicate-key join expansion.
+    key exists. Backs the compiled duplicate-key join expansion. The
+    bucket table is resolved as in ``sorted_probe``.
     """
     global PROBE_RANGE_LAUNCHES
-    scalars, starts = _prepare(build_sorted, keys, scalars, starts)
+    table, dev = _resolve(build_sorted, keys, table)
     n, s = keys.shape[0], build_sorted.shape[0]
     if n == 0 or s == 0:      # no match; never launch an empty grid
         zeros = torch.zeros(n, dtype=torch.int32, device=keys.device)
         return (zeros, zeros.clone(),
                 torch.zeros(n, dtype=torch.bool, device=keys.device))
-    if keys.device.type == "cpu":
-        return sorted_probe_range_plain(build_sorted, keys, scalars, starts)
-    lo = torch.empty(n, dtype=torch.int32, device=keys.device)
-    hi = torch.empty(n, dtype=torch.int32, device=keys.device)
-    match = torch.empty(n, dtype=torch.uint8, device=keys.device)
-    _cuda_args(build_sorted, keys, starts)
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().repro_probe_range(
-            starts.data_ptr(), build_sorted.data_ptr(), keys.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), match.data_ptr(), n, s,
-            int(scalars[0]), int(scalars[1]), stream)
+    if dev < 0:
+        return sorted_probe_range_plain(build_sorted, keys,
+                                        (table.bias, table.shift),
+                                        table.starts)
+    _cuda_args(build_sorted, keys)
+    lo = torch.empty_like(keys)
+    hi = torch.empty_like(keys)
+    match = torch.empty_like(keys, dtype=torch.bool)
+    rc = _fns()[1](
+        table.starts.data_ptr(), build_sorted.data_ptr(), keys.data_ptr(),
+        lo.data_ptr(), hi.data_ptr(), match.data_ptr(), n, s, table.bias,
+        table.shift, table.device_index,
+        torch.cuda.current_stream(table.device_index).cuda_stream)
     kbuild.check(rc, "repro_probe_range")
     PROBE_RANGE_LAUNCHES += 1
-    return lo, hi, match.view(torch.bool)
+    return lo, hi, match

@@ -103,8 +103,8 @@ def test_prepare_buckets_matches_reference_under_skew(rng):
     np.testing.assert_array_equal(starts, jstarts)
     keys = np.concatenate([np.zeros(10, np.int32),
                            rng.integers(0, 2**30, 100).astype(np.int32)])
-    pos, match = thj.sorted_probe(_t(build), _t(keys), scalars=scal,
-                                  starts=starts)
+    table = thj.ProbeTable(_t(starts), int(scal[0]), int(scal[1]), -1)
+    pos, match = thj.sorted_probe(_t(build), _t(keys), table=table)
     ref_pos, ref_match = jhj.sorted_probe_np(build, keys)
     np.testing.assert_array_equal(match.numpy(), ref_match)
     np.testing.assert_array_equal(pos.numpy()[ref_match], ref_pos[ref_match])
@@ -122,6 +122,66 @@ def test_probe_empty_sides():
 def test_probe_rejects_wide_keys():
     with pytest.raises(ValueError, match="int32"):
         thj.sorted_probe(torch.arange(4), torch.arange(2))
+
+
+def _dup_build(rng, s=600, kmax=900):
+    base = rng.integers(0, kmax, s).astype(np.int32)
+    return np.sort(np.concatenate([base, rng.choice(base, s // 2)])
+                   ).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["probe", "range"])
+def test_probe_table_matches_oracle_and_tableless_call(rng, kind):
+    """With a table made once (``probe_table``), both probes equal the
+    numpy oracle and the call that builds its table itself."""
+    build = _dup_build(rng)
+    keys = rng.integers(-10, 910, 2000).astype(np.int32)
+    table = thj.probe_table(build, "cpu")
+    assert table.starts.dtype == torch.int32 and table.device_index == -1
+    assert (table.bias, table.shift) == tuple(
+        int(v) for v in thj.prepare_buckets(build)[0])
+    if kind == "probe":
+        got = thj.sorted_probe(_t(build), _t(keys), table=table)
+        bare = thj.sorted_probe(_t(build), _t(keys))
+        ref_pos, ref_match = jhj.sorted_probe_np(build, keys)
+        np.testing.assert_array_equal(got[1].numpy(), ref_match)
+        np.testing.assert_array_equal(got[0].numpy()[ref_match],
+                                      ref_pos[ref_match])
+    else:
+        got = thj.sorted_probe_range(_t(build), _t(keys), table=table)
+        bare = thj.sorted_probe_range(_t(build), _t(keys))
+        ref_lo, ref_hi, ref_match = jhj.sorted_probe_range_np(build, keys)
+        np.testing.assert_array_equal(got[2].numpy(), ref_match)
+        for g, ref in zip(got[:2], (ref_lo, ref_hi)):
+            np.testing.assert_array_equal(g.numpy()[ref_match],
+                                          ref[ref_match])
+    for g, b in zip(got, bare):
+        assert g.dtype == b.dtype and torch.equal(g, b)
+
+
+def test_probe_table_is_used_as_is(rng, monkeypatch):
+    """A call handed a table never rebuilds it."""
+    build = _dup_build(rng)
+    keys = rng.integers(-10, 910, 500).astype(np.int32)
+    table = thj.probe_table(build, "cpu")
+    want = thj.sorted_probe_range(_t(build), _t(keys), table=table)
+
+    def refuse(*args):
+        raise AssertionError("prepare_buckets ran on a call given a table")
+    monkeypatch.setattr(thj, "prepare_buckets", refuse)
+    got = thj.sorted_probe_range(_t(build), _t(keys), table=table)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    pos, match = thj.sorted_probe(_t(build), _t(keys), table=table)
+    assert torch.equal(match, want[2])
+    with pytest.raises(AssertionError, match="prepare_buckets"):
+        thj.sorted_probe(_t(build), _t(keys))
+
+
+def test_probe_table_on_another_device_raises(rng):
+    build = _dup_build(rng)
+    table = thj.probe_table(build, "cpu")._replace(device_index=0)
+    with pytest.raises(ValueError, match="device"):
+        thj.sorted_probe(_t(build), _t(build[:5].copy()), table=table)
 
 
 # ---------------------------------------------------------------------------
