@@ -9,9 +9,10 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
 
 1. build  — compile the hand-written kernels under
    ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all at once); log
-   ptxas' report for the two tensor-core kernels (flash attention, the
-   grouped matmul) and the HGMMA (``wgmma``) instructions in each library,
-   which must not be 0; neither report may show spills;
+   ptxas' report for the three tensor-core kernels and the count of their
+   HGMMA (``wgmma``: flash attention, the grouped matmul) or HMMA
+   (``mma.sync``: the RWKV-6 scan) instructions, which must not be 0; no
+   report may show spills;
 2. load   — generate TPC-H ``lineitem`` (6,000,000 rows, one object: one
    paper worker's ~182 MiB SF1000 partition) and ``orders`` (1,500,000
    rows) into the port's object store;
@@ -26,8 +27,10 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
 5. kernels — each query kernel's wrapper against its plain PyTorch
    version on the card at the shapes the queries gave it, timed with CUDA
    events (median and spread of five batches) beside its bound, the plain
-   version and one PyTorch library call; the probe's host time per step of
-   its launch path (``perf_counter``);
+   version and one PyTorch library call; the segmented reduction through
+   the host offsets the engine passes and through ids (derived on the
+   card), with no wait for the card inside the call, and its host µs
+   (``perf_counter``) beside its kernels' device µs (``torch.profiler``);
 6. serve  — ``ServingEngine`` answers 8 requests of 1,024-4,096 prompt
    tokens and 32 new tokens each, in two batches of 4, with each of three
    models at full width and depth (random bf16 weights from a seeded
@@ -35,7 +38,7 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    attention and RG-LRU kernels launch once per ``local`` / ``rec`` layer
    and batch, every flash launch on the tensor-core route), RWKV-6 1.6B
    (``impl="flash"``: the RWKV-6 scan once per ``rwkv`` layer and batch, 48
-   in all) and DeepSeekMoE-16B (``impl="flash_moe"``: the grouped matmul
+   in all, every one on the tensor-core route) and DeepSeekMoE-16B (``impl="flash_moe"``: the grouped matmul
    three times per ``moe`` layer and batch, 162 in all, every one on the
    tensor-core route; the reference attention). No other model kernel may
    launch. Each model's first batch's
@@ -53,7 +56,10 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    MusicGen-medium's shapes, D = 128 and 64, and in float32 on the
    CUDA-core route, where a window edge off by one must show; the scans
    also at a strong decay, where the RWKV-6 scan is held against the step
-   oracle; the grouped matmul also in float32, with its largest error in
+   oracle, and the RWKV-6 scan at a ragged length and at an extreme decay
+   (log_w near -60 and near -1e-3 mixed in each chunk), and on its
+   one-step-at-a-time route too, timed as the earlier kernel; the grouped
+   matmul also in float32, with its largest error in
    each 64-column block of the output, and at the gate/up shape on its
    ``mma.sync`` route too, timed as the earlier kernel); planted faults
    must fail their checks (the RWKV-6 scan without its bonus u; one
@@ -244,17 +250,21 @@ def _kernel_modules():
 
 def _route_counters():
     """Launches of a kernel's route, counted beside its kernel's own:
-    flash attention's tensor-core route (bf16 at D = 64, 128, 256) and
-    the grouped matmul's (bf16 with D and F multiples of 8)."""
+    flash attention's tensor-core route (bf16 at D = 64, 128, 256), the
+    grouped matmul's (bf16 with D and F multiples of 8) and the RWKV-6
+    scan's (K = V = 64)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import rwkv6_scan as rs
     return {"flash_attention_tc": (fa, "FLASH_ATTENTION_TC_LAUNCHES"),
-            "gmm_tc": (mg, "GMM_TC_LAUNCHES")}
+            "gmm_tc": (mg, "GMM_TC_LAUNCHES"),
+            "rwkv6_scan_tc": (rs, "RWKV6_SCAN_TC_LAUNCHES")}
 
 
 # The kernels whose every launch in ``serve`` must take the tensor-core
 # route, and the route's counter.
-TC_ROUTES = {"flash_attention": "flash_attention_tc", "gmm": "gmm_tc"}
+TC_ROUTES = {"flash_attention": "flash_attention_tc", "gmm": "gmm_tc",
+             "rwkv6_scan": "rwkv6_scan_tc"}
 
 
 def launch_counts() -> dict:
@@ -343,10 +353,11 @@ def run_queries(store, keys):
 # them (``probe_range_kernel`` first: it also ends in ``_kernel``).
 OWN_KERNELS = (("probe_range", "probe_range_kernel"),
                ("probe", "probe_kernel"),
-               ("segment_reduce", "segment_reduce_pass"),
+               ("segment_reduce", "segment_reduce_fold"),
                ("flash_attention", "flash_attention_kernel"),
                ("flash_attention", "flash_attention_wgmma_kernel"),
                ("rglru_scan", "rglru_scan_kernel"),
+               ("rwkv6_scan", "rwkv6_scan_tc_kernel"),
                ("rwkv6_scan", "rwkv6_scan_kernel"),
                ("gmm", "gmm_bf16_kernel"),
                ("gmm", "gmm_wgmma_kernel"))
@@ -519,29 +530,69 @@ def check_probes(recorded, launches):
     return out
 
 
+def segment_host_device_us(kern, calls: int = 200) -> dict:
+    """Where a wrapper call's time goes: host µs a call (``perf_counter``
+    over ``calls`` calls enqueued back to back, then one wait), and the
+    device µs a call of each kernel and copy it ran (``torch.profiler``
+    over ``calls`` more)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(10):
+        kern()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        kern()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kern()
+        torch.cuda.synchronize()
+    device = {evt.key[:60]: evt.self_device_time_total / calls
+              for evt in prof.key_averages()
+              if evt.device_type == DeviceType.CUDA}
+    return {"host_us_per_call": host_s / calls * 1e6,
+            "device_us_per_call": device}
+
+
 def check_segment_reduce(recorded, launches):
+    """The reduction as the main path calls it, through the groups' host
+    row offsets, and through ids (derived on the card), each bit-equal to
+    the plain version; in every mode at Q1's shape and at few, many and
+    one segment(s) (one 6M-row segment takes three passes in two
+    launches). The wrapper must not wait for the card before it returns,
+    and the derivation must reject a bad layout."""
     import numpy as np
     import torch
     from repro_torch.kernels import segment_reduce as sr
-    (vals, ids), kw = recorded["segment_reduce"]
-    num_segments, mode = kw["num_segments"], kw.get("mode", "sum")
+    (vals,), kw = recorded["segment_reduce"]
+    offsets, mode = np.asarray(kw["offsets"]), kw.get("mode", "sum")
 
-    def one(vals, ids, S, mode):
-        # The public wrapper, which derives and checks the segment
-        # offsets from the ids on the card before its passes.
+    def one(vals, offsets, mode):
+        S = len(offsets) - 1
+        counts = torch.as_tensor(np.diff(offsets), device=vals.device)
+        ids = torch.repeat_interleave(
+            torch.arange(S, dtype=torch.int32, device=vals.device), counts)
         kern = lambda: sr.segment_reduce(  # noqa: E731
+            vals, offsets=offsets, mode=mode)
+        by_ids = lambda: sr.segment_reduce(  # noqa: E731
             vals, ids, num_segments=S, mode=mode)
         plain = lambda: sr.segment_reduce_plain(  # noqa: E731
             vals, ids, S, mode)
-        got, want = kern(), plain()
-        offsets = sr.segment_offsets(ids, S)
+        got, got_ids, want = kern(), by_ids(), plain()
+        derived = sr.segment_offsets(ids, S)
+        if not np.array_equal(derived, offsets):
+            raise AssertionError("segment_offsets on the card != offsets")
         exact = np.stack([
             np.add.reduceat(v, offsets[:-1]) if mode == "sum" else
             np.diff(offsets).astype(np.float64) if mode == "count" else
             (np.minimum if mode == "min" else np.maximum).reduceat(
                 v, offsets[:-1])
             for v in vals.double().cpu().numpy()])
-        if not torch.equal(got, want):
+        if not (torch.equal(got, want) and torch.equal(got_ids, want)):
             raise AssertionError(f"segment_reduce {mode}: kernel != plain")
         g = got.double().cpu().numpy()
         if mode in ("min", "max"):
@@ -549,42 +600,68 @@ def check_segment_reduce(recorded, launches):
         else:
             np.testing.assert_allclose(g, exact, rtol=RTOL)
         c, n = vals.shape
-        n_valid = int(offsets[-1])
-        valid_ids = ids[:n_valid].to(torch.int64)
         vt = vals.t().contiguous()
         lib = (lambda: torch.segment_reduce(  # noqa: E731
             vt, "sum" if mode == "count" else mode,
-            lengths=torch.bincount(valid_ids, minlength=S), axis=0))
-        # Bytes the function must move: every id read once, the valid
-        # rows' values once (none in count mode, which reads no values),
-        # one float32 result per (column, segment).
-        value_bytes = 0 if mode == "count" else 4 * c * n_valid
+            lengths=counts, axis=0))
+        # Bytes the function must move: the valid rows' values once
+        # (none in count mode, which reads no values), the offsets, one
+        # float32 result per (column, segment).
+        value_bytes = 0 if mode == "count" else 4 * c * int(offsets[-1])
+        per_ids = time_spread(by_ids)
+        launches0 = sr.SEGMENT_REDUCE_LAUNCHES
+        kern()
+        per_call = sr.SEGMENT_REDUCE_LAUNCHES - launches0
         return {"max_abs_err": float((got - want).abs().max()),
                 "max_rel_err_f64": float((np.abs(g - exact)
                                           / np.abs(exact)).max()),
-                "bound_ms": bound_ms(4 * n + value_bytes + 4 * c * S),
+                "bound_ms": bound_ms(8 * (S + 1) + value_bytes + 4 * c * S),
                 "bound_by": "bytes", **kernel_times(kern, plain, lib),
-                "passes": len(sr.reduction_passes(offsets))}
+                "ids_ms": per_ids[len(per_ids) // 2], "ids_ms_min": per_ids[0],
+                "ids_ms_max": per_ids[-1],
+                "passes": len(sr.reduction_passes(offsets)),
+                "launches_per_call": per_call}
 
-    main = one(vals, ids, num_segments, mode)
+    main = one(vals, offsets, mode)
+    kern = lambda: sr.segment_reduce(  # noqa: E731
+        vals, offsets=offsets, mode=mode)
+    # No wait for the card inside the call: synchronising operations
+    # raise in this mode.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kern()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    split = segment_host_device_us(kern)
     row = {"name": "segment_reduce", "route": "cuda",
            "source": "src/repro_torch/csrc/segment_reduce.cu",
            "replaces": "src/repro/kernels/segment_reduce.py:43",
            "launches": launches["segment_reduce"], **main}
     log("kernel", **row, columns=vals.shape[0], n=vals.shape[1],
-        segments=num_segments, mode=mode)
+        segments=len(offsets) - 1, mode=mode, entry="offsets",
+        syncs_before_result=0,
+        offsets_derivations=sr.SEGMENT_OFFSETS_LAUNCHES, **split)
+    bad = torch.tensor([0, 2, 1], dtype=torch.int32, device=vals.device)
+    try:
+        sr.segment_offsets(bad, 3)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("segment_offsets took descending ids")
     # Q1's stack of five sum columns at the query's row count, against
-    # few and many segments, in every mode.
+    # few, many and one segment(s), and segments of under 1024 rows (one
+    # pass), in every mode.
     n = vals.shape[1]
     rng = np.random.default_rng(0)
     q1 = torch.as_tensor(np.round(rng.uniform(1.0, 1000.0, (5, n)), 2),
                          dtype=torch.float32, device=vals.device)
-    for S in (4, 1024):
-        sid = torch.as_tensor(np.sort(rng.integers(0, S, n)).astype(np.int32),
-                              device=vals.device)
+    for S in (4, 1024, 1, 8192):
+        offs = np.searchsorted(np.sort(rng.integers(0, S, n)),
+                               np.arange(S + 1)).astype(np.int64)
         for m in ("sum", "count", "min", "max"):
             log("kernel_sweep", name="segment_reduce", columns=5, n=n,
-                segments=S, mode=m, **one(q1, sid, S, m))
+                segments=S, mode=m, **one(q1, offs, m))
     return [{k: row[k] for k in ROW_KEYS}]
 
 
@@ -702,7 +779,7 @@ def run_serving(arch: str):
                                  f"{launches[k]} {k} launches took the "
                                  "tensor-core route")
     first = np.asarray([r.completion[0] for r in done[:SERVE_BATCH]])
-    return eng, reqs, launches, first
+    return eng, reqs, {**launches, **routes}, first
 
 
 def _recorders(arch: str) -> dict:
@@ -1224,8 +1301,10 @@ def check_rwkv6(recorded, launches):
     vd = v.shape[3]
     kern = lambda: rs.rwkv6_scan(r, k, v, lw, u, s0)  # noqa: E731
     plain = lambda: rs.rwkv6_scan_plain(r, k, v, lw, u, s0, **kw)  # noqa: E731
+    tc0 = rs.RWKV6_SCAN_TC_LAUNCHES
     (g_o, g_s), (w_o, w_s) = kern(), plain()
     t_o, t_s, o_mag, s_mag = rwkv6_truth(r, k, v, lw, u, s0)
+    o_mag_serve, s_mag_serve = o_mag, s_mag
     torch.cuda.synchronize()
     err = within_scan(g_o, w_o, o_mag, BF16_TOL)
     state_err = within_scan(g_s, w_s, s_mag, 0.0)
@@ -1273,6 +1352,37 @@ def check_rwkv6(recorded, launches):
     _, _, r_mag, r_smag = rwkv6_truth(rr, rk, rv, rlw, ru, rs0)
     ragged_err = max(within_scan(ro, rwo, r_mag, RWKV_TOL),
                      within_scan(rst, rws, r_smag, RWKV_TOL))
+    # Extreme decay: a fifth of the steps near log_w = -60, the rest near
+    # -1e-3, mixed within each chunk; no exp(-incl) form survives a step.
+    xr, xk, xv = (torch.randn((2, 1000, 3, kd), **f32) for _ in range(3))
+    big = torch.rand((2, 1000, 3, kd), **f32) < 0.2
+    xlw = torch.where(big, -60.0 + torch.randn(big.shape, **f32),
+                      -1e-3 * torch.rand(big.shape, **f32))
+    xo, xst = rs.rwkv6_scan(xr, xk, xv, xlw, ru, rs0)
+    xwo, xws = ref.rwkv6_step_ref(xr, xk, xv, xlw, ru, rs0)
+    _, _, x_mag, x_smag = rwkv6_truth(xr, xk, xv, xlw, ru, rs0)
+    extreme_err = max(within_scan(xo, xwo, x_mag, RWKV_TOL),
+                      within_scan(xst, xws, x_smag, RWKV_TOL))
+    # Every call above ran on the tensor-core route (K = V = 64): the
+    # serving call, the float32 one, the strong decay with its planted
+    # fault, the ragged length and the extreme decay.
+    if rs.RWKV6_SCAN_TC_LAUNCHES - tc0 != 6:
+        raise AssertionError(f"rwkv6_scan: {rs.RWKV6_SCAN_TC_LAUNCHES - tc0} "
+                             "of 6 calls took the tensor-core route")
+    del xr, xk, xv, xlw, xo, xst, xwo, xws, x_mag, x_smag, big
+    # The earlier kernel, stepped one token at a time, through _route's
+    # other branch: held to the same checks at the serving shape and
+    # timed in the same run.
+    with replaced(rs, "_route", lambda f: lambda *a: "seq"):
+        q_o, q_s = kern()
+        torch.cuda.synchronize()
+        if rs.RWKV6_SCAN_TC_LAUNCHES - tc0 != 6:
+            raise AssertionError("rwkv6_scan: the seq route took the "
+                                 "tensor-core kernel")
+        seq_err = max(within_scan(q_o, w_o, o_mag_serve, BF16_TOL),
+                      within_scan(q_s, w_s, s_mag_serve, 0.0))
+        seq_per = time_spread(kern)
+    del q_o, q_s
     per = time_spread(kern)
     nbytes = (r.numel() + k.numel() + v.numel() + g_o.numel()) \
         * r.element_size() + 4 * (lw.numel() + u.numel() + 2 * s0.numel())
@@ -1286,19 +1396,37 @@ def check_rwkv6(recorded, launches):
     flops = tc_flops + cc_flops
     t_ops = (tc_flops / TF32_FLOPS_PER_S + cc_flops / F32_FLOPS_PER_S) * 1e3
     t_bytes = bound_ms(nbytes)
-    # This kernel's own sequential form: 5*K*V + 3*K + 2*V per step and
-    # head, all on the CUDA cores.
+    # The seq kernel's own sequential form: 5*K*V + 3*K + 2*V per step
+    # and head, all on the CUDA cores.
     design_ms = b * h * s * (5 * kd * vd + 3 * kd + 2 * vd) \
         / F32_FLOPS_PER_S * 1e3
     row = {"name": "rwkv6_scan", "route": "cuda",
-           "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+           "source": "src/repro_torch/csrc/rwkv6_scan_tc.cu",
            "replaces": "src/repro/kernels/rwkv6_scan.py:27",
            "launches": launches["rwkv6_scan"], "max_abs_err": err,
            "ms": per[len(per) // 2], "ms_min": per[0], "ms_max": per[-1],
            "plain_ms": time_ms(plain), "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_ms": None}
+    # The tensor-core kernel's own products: per chunk of 64 steps and
+    # head, R S, A V and K^T V (64x64x64 each, A V about 5/8 of it under
+    # the diagonal), six 16x16x64 sub-chunk products and four 8x8x64 half
+    # products, each as three products of split parts (two where bf16 v
+    # is exact), in bf16 for bf16 inputs and TF32 for float32.
+    chunks = b * h * (-(-s // 64))
+    mm = 2 * 64 ** 3
+    bf16 = r.dtype == torch.bfloat16
+    tc_design = chunks * (3 * mm + 3 * 6 * 2 * 16 * 16 * 64
+                          + 3 * 4 * 2 * 8 * 8 * 64
+                          + (2 if bf16 else 3) * (mm * 5 // 8 + mm))
+    tc_rate = BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S
     log("kernel", **row, shape=[b, s, h, kd, vd], dtype=str(r.dtype),
+        kernel_route=rs._route(r.dtype, kd, vd),
+        tc_launches=launches["rwkv6_scan_tc"],
+        seq_route_ms=seq_per[len(seq_per) // 2], seq_route_ms_min=seq_per[0],
+        seq_route_ms_max=seq_per[-1], seq_route_max_abs_err=seq_err,
+        tc_form_flops=tc_design, tc_form_ops_ms=tc_design / tc_rate * 1e3,
+        extreme_decay_max_abs_err=extreme_err,
         bound_ops_ms=t_ops, bound_bytes_ms=t_bytes, flops=flops,
         sequential_form_ops_ms=design_ms, bytes=nbytes, state_max_abs_err=state_err, tol=RWKV_TOL,
         vs_float64_max_abs_err=truth, output_max=value_max,
@@ -1447,34 +1575,39 @@ MODEL_CHECKS = {
 }
 
 
-WGMMA_LIBS = ("flash_attention_wgmma", "moe_gmm_wgmma")
+# The tensor-core libraries and the instruction each must hold: HGMMA
+# (``wgmma``) or HMMA (``mma.sync``).
+TC_LIBS = {"flash_attention_wgmma": "HGMMA", "moe_gmm_wgmma": "HGMMA",
+           "rwkv6_scan_tc": "HMMA"}
 
 
 def log_wgmma_builds(report) -> None:
     """Each tensor-core library as built: ptxas' report (registers,
     shared memory, spills) and, where the toolkit has ``cuobjdump``, the
-    count of HGMMA (``wgmma``) instructions in it, which must not be 0;
-    ptxas' report must show no spilled bytes."""
+    count of its tensor-core instructions, HGMMA and HMMA; the one
+    ``TC_LIBS`` names must not be 0, and ptxas' report must show no
+    spilled bytes."""
     from repro_torch.kernels import build as kbuild
     tool = kbuild.cuda_tool("cuobjdump")
-    for name in WGMMA_LIBS:
+    for name, needed in TC_LIBS.items():
         text = report.get(name, {}).get("log", "")
         ptxas = [ln.strip() for ln in text.splitlines()
                  if "Used" in ln or "spill" in ln or "C75" in ln]
         spilled = sum(int(b) for b in re.findall(
             r"(\d+) bytes spill (?:stores|loads)", text))
-        hgmma = None
+        counts = {"HGMMA": None, "HMMA": None}
         if tool is not None:
             sass = subprocess.run(
                 [tool, "-sass", str(kbuild.library_path(name))],
                 capture_output=True, text=True, timeout=300,
                 check=True).stdout
-            hgmma = sass.count("HGMMA")
+            counts = {op: sass.count(op) for op in counts}
         log("build_wgmma", library=name, ptxas=ptxas,
-            hgmma_instructions=hgmma, spilled_bytes=spilled)
-        if hgmma == 0:
+            hgmma_instructions=counts["HGMMA"],
+            hmma_instructions=counts["HMMA"], spilled_bytes=spilled)
+        if counts[needed] == 0:
             raise AssertionError(f"the tensor-core library {name} holds no "
-                                 "HGMMA instruction")
+                                 f"{needed} instruction")
         if spilled:
             raise AssertionError(f"ptxas spilled {spilled} bytes in {name}")
 

@@ -1,13 +1,21 @@
-"""Measured data-plane throughputs from ``BENCH_engine_torch.json``.
+"""Measured data-plane throughputs from the bench profiles.
 
-The profile records what the port's data plane sustains on the GPU
-(no bench harness writes it yet, so the fallbacks apply; the reference
-package's CPU-measured ``BENCH_engine.json`` is never read). The
-coordinator's fragment-duration
-model and the burst planner prefer those measurements over the hand-set
-``CPU_BYTES_PER_S_BY_BACKEND`` constants; every accessor degrades
-gracefully to the caller's fallback when the file is absent, stale, or
-malformed (fresh checkouts, CI sandboxes).
+Two profiles are read, never written:
+
+- ``BENCH_engine.json``, the reference package's own file, for the
+  ``numpy`` backend (both packages run the same numpy code on the same
+  host) and for the sections that do not depend on the backend
+  (``tiered_exchange``, ``shuffle``): ``REPRO_BENCH_PROFILE``, then the
+  current directory, then the repository root, in the reference's order;
+- ``BENCH_engine_torch.json`` for the ``torch`` backend, whose data plane
+  runs on the GPU (no bench harness writes it yet, so its fallbacks
+  apply), looked up in the same places.
+
+The coordinator's fragment-duration model and the burst planner prefer
+those measurements over the hand-set ``CPU_BYTES_PER_S_BY_BACKEND``
+constants; every accessor degrades gracefully to the caller's fallback
+when the file is absent, stale, or malformed (fresh checkouts, CI
+sandboxes).
 """
 from __future__ import annotations
 
@@ -22,25 +30,26 @@ from typing import Optional
 MIB = 1024.0 ** 2
 
 _ENV_VAR = "REPRO_BENCH_PROFILE"
-# The port's own profile: throughputs measured on the GPU must never mix
-# with the reference package's CPU-measured ``BENCH_engine.json``.
-_PROFILE_NAME = "BENCH_engine_torch.json"
+# The reference's profile, and the port's own for the torch backend:
+# throughputs measured on the GPU never mix with the CPU-measured ones.
+_PROFILE_NAME = "BENCH_engine.json"
+_TORCH_PROFILE_NAME = "BENCH_engine_torch.json"
 
 
-def _candidates() -> list[pathlib.Path]:
+def _candidates(name: str) -> list[pathlib.Path]:
     out = []
     env = os.environ.get(_ENV_VAR)
     if env:
         out.append(pathlib.Path(env))
-    out.append(pathlib.Path.cwd() / _PROFILE_NAME)
+    out.append(pathlib.Path.cwd() / name)
     # src/repro_torch/core/bench_profile.py -> repo root
-    out.append(pathlib.Path(__file__).resolve().parents[3] / _PROFILE_NAME)
+    out.append(pathlib.Path(__file__).resolve().parents[3] / name)
     return out
 
 
 @functools.lru_cache(maxsize=8)
-def _load_cached(path_key: Optional[str]) -> dict:
-    paths = [pathlib.Path(path_key)] if path_key else _candidates()
+def _load_cached(path_key: Optional[str], name: str) -> dict:
+    paths = [pathlib.Path(path_key)] if path_key else _candidates(name)
     for p in paths:
         try:
             with open(p) as f:
@@ -52,9 +61,10 @@ def _load_cached(path_key: Optional[str]) -> dict:
     return {}
 
 
-def load(path: Optional[str] = None) -> dict:
-    """The parsed benchmark profile, or ``{}`` when unavailable."""
-    return _load_cached(str(path) if path is not None else None)
+def load(path: Optional[str] = None, name: str = _PROFILE_NAME) -> dict:
+    """The parsed benchmark profile ``name`` (or the file at ``path``),
+    or ``{}`` when unavailable."""
+    return _load_cached(str(path) if path is not None else None, name)
 
 
 def clear_cache() -> None:
@@ -66,8 +76,10 @@ def clear_cache() -> None:
 def cpu_bytes_per_s(backend: str, fallback: float,
                     path: Optional[str] = None) -> float:
     """Measured pipeline scan/decode throughput (bytes/s) for an engine
-    backend, from the ``pipeline`` section; ``fallback`` otherwise."""
-    pipe = load(path).get("pipeline", {})
+    backend, from the ``pipeline`` section of that backend's profile;
+    ``fallback`` otherwise."""
+    name = _TORCH_PROFILE_NAME if backend == "torch" else _PROFILE_NAME
+    pipe = load(path, name).get("pipeline", {})
     mib = pipe.get("batch_mib")
     secs = pipe.get({"numpy": "numpy_s", "torch": "torch_s"}.get(backend))
     if not mib or not secs or secs <= 0:

@@ -846,16 +846,13 @@ def _run_hash_agg(batch: ColumnBatch, keys: list[str], aggs: list[list],
         return operators.op_hash_agg(batch, keys, aggs)
     n = batch.num_rows
     order, starts, out = operators.group_boundaries(batch, keys)
-    seg_ids = np.zeros(n, dtype=np.int64)
-    if keys:
-        seg_ids[starts] = 1
-        seg_ids = np.cumsum(seg_ids) - 1
+    if not keys:
         # order is a true permutation only in the keyed case; the global
         # aggregate (keys=[]) reduces in input order.
-    else:
         order = None
     n_groups = len(starts)
-    counts = np.diff(np.append(starts, n))
+    offsets = np.append(starts, n)
+    counts = np.diff(offsets)
     if n_groups > _MAX_KERNEL_GROUPS:
         FALLBACK_STATS["hash_agg_groups"] += 1
         for name, fn, col in aggs:
@@ -865,9 +862,8 @@ def _run_hash_agg(batch: ColumnBatch, keys: list[str], aggs: list[list],
             out[name] = operators._AGG_FNS[fn](
                 vals[order] if order is not None else vals, starts)
     else:
-        # Same-mode aggregates stack into one kernel call; the ids are
-        # sorted and contiguous, which is what the kernel takes.
-        ids = torch.from_numpy(seg_ids.astype(np.int32)).to(device)
+        # Same-mode aggregates stack into one kernel call over the groups'
+        # row offsets: each group is one contiguous run of the sorted rows.
         for mode in ("sum", "min", "max"):
             group = [(name, col) for name, fn, col in aggs if fn == mode]
             if not group:
@@ -877,8 +873,8 @@ def _run_hash_agg(batch: ColumnBatch, keys: list[str], aggs: list[list],
                 v = np.asarray(batch[col], dtype=np.float32)
                 vals[row] = v[order] if order is not None else v
             red = _to_host(sr_kernel.segment_reduce(
-                torch.from_numpy(vals).to(device), ids,
-                num_segments=n_groups, mode=mode))
+                torch.from_numpy(vals).to(device), offsets=offsets,
+                mode=mode))
             for row, (name, _) in enumerate(group):
                 out[name] = red[row].astype(np.float64)
     for name, fn, _ in aggs:

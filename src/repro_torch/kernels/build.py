@@ -25,8 +25,8 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 SOURCES = ("hash_join", "segment_reduce", "flash_attention",
-           "flash_attention_wgmma", "rglru_scan", "rwkv6_scan", "moe_gmm",
-           "moe_gmm_wgmma")
+           "flash_attention_wgmma", "rglru_scan", "rwkv6_scan",
+           "rwkv6_scan_tc", "moe_gmm", "moe_gmm_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -7,12 +7,19 @@ float32, and returns o (B, S, H, V) in r's dtype and s_final
 (B, H, K, V) float32, for any S (no padding to a whole chunk, which the
 reference's ``ops.rwkv6_scan`` needed).
 
-On a CUDA tensor ``rwkv6_scan`` launches the hand-written kernel
-(``csrc/rwkv6_scan.cu``, one block per (batch, head) stepping the
-recurrence exactly, counted in ``RWKV6_SCAN_LAUNCHES``), which reads the
-inputs through their strides; on a CPU tensor it runs the plain version,
+On a CUDA tensor ``rwkv6_scan`` launches one of two hand-written
+kernels, both reading the inputs through their strides, chosen by
+``_route`` from the dtype and head dims alone: K = V = 64 (every served
+shape) takes the chunk-parallel tensor-core kernel
+(``csrc/rwkv6_scan_tc.cu``, ``"tc"``: 64-step chunks, decays as products
+of per-step decays, operands split hi + lo, in bf16 parts for bf16 inputs
+and TF32 parts for float32); other K, V up to 64
+take the kernel that steps the recurrence one token at a time
+(``csrc/rwkv6_scan.cu``, ``"seq"``). Every launch counts in
+``RWKV6_SCAN_LAUNCHES``, the tensor-core ones also in
+``RWKV6_SCAN_TC_LAUNCHES``. On a CPU tensor it runs the plain version,
 the vectorised chunked oracle ``ref.rwkv6_chunked_ref`` with its exact
-pairwise decays. ``ref.rwkv6_step_ref`` is the ground truth of both.
+pairwise decays. ``ref.rwkv6_step_ref`` is the ground truth of all.
 """
 from __future__ import annotations
 
@@ -24,16 +31,24 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.ref import rwkv6_chunked_ref as rwkv6_scan_plain
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_plain", "RWKV6_SCAN_LAUNCHES",
-           "MAX_HEAD_DIM"]
+           "RWKV6_SCAN_TC_LAUNCHES", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 64
+TC_HEAD_DIM = 64     # the tensor-core kernel's K and V
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches (one per wrapper call that reaches the card).
+# Kernel launches (one per wrapper call that reaches the card), and those
+# of them on the tensor-core route.
 RWKV6_SCAN_LAUNCHES = 0
+RWKV6_SCAN_TC_LAUNCHES = 0
 
-_LIB = None
+
+def _route(dtype, k: int, v: int) -> str:
+    """The kernel for r of ``dtype`` and head dims ``k``, ``v``: ``"tc"``
+    (chunk-parallel on the tensor cores, at both dtypes) at K = V = 64,
+    else ``"seq"`` (one step at a time on the CUDA cores)."""
+    return "tc" if k == v == TC_HEAD_DIM else "seq"
 
 
 def _check(r, k, v, log_w, u, s0):
@@ -58,43 +73,69 @@ def _check(r, k, v, log_w, u, s0):
         raise ValueError("rwkv6_scan's inputs lie on different devices")
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = kbuild.load("rwkv6_scan")
+_LIBS = {}
+
+
+def _lib(route: str):
+    lib = _LIBS.get(route)
+    if lib is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.repro_rwkv6_scan.argtypes = [p] * 9 + [i32] * 6 + [p]
-        lib.repro_rwkv6_scan.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        if route == "tc":
+            lib = kbuild.load("rwkv6_scan_tc")
+            fn = lib.repro_rwkv6_scan_tc
+            fn.argtypes = [p] * 9 + [i32] * 4 + [p]
+        else:
+            lib = kbuild.load("rwkv6_scan")
+            fn = lib.repro_rwkv6_scan
+            fn.argtypes = [p] * 9 + [i32] * 6 + [p]
+        fn.restype = ctypes.c_int
+        _LIBS[route] = lib
+    return lib
+
+
+def _aligned_rows(t):
+    """``t`` itself if every (batch, step, head) row starts on 16 bytes,
+    as the tensor-core kernel's asynchronous copies need; else a
+    contiguous copy."""
+    unit = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(t.stride(i) % unit == 0
+                                      for i in range(3)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _scan_cuda(r, k, v, log_w, u, s0):
-    global RWKV6_SCAN_LAUNCHES
+    global RWKV6_SCAN_LAUNCHES, RWKV6_SCAN_TC_LAUNCHES
     b, s, h, kd = r.shape
     vd = v.shape[3]
     if not (0 < kd <= MAX_HEAD_DIM and 0 < vd <= MAX_HEAD_DIM):
         raise ValueError(f"the rwkv6 kernel takes K and V up to "
                          f"{MAX_HEAD_DIM}, not {kd} and {vd}")
+    route = _route(r.dtype, kd, vd)
     u, s0 = u.contiguous(), s0.contiguous()
     o = torch.empty((b, s, h, vd), dtype=r.dtype, device=r.device)
     s_final = torch.empty_like(s0)
     if b * h == 0:
         return o, s_final
-    strides = []
-    for t in (r, k, v, log_w, o):
-        if t.stride(3) != 1:
-            raise ValueError("rwkv6_scan needs a contiguous last dim")
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    ins = (r, k, v, log_w)
+    if any(t.stride(3) != 1 for t in ins):
+        raise ValueError("rwkv6_scan needs a contiguous last dim")
+    if route == "tc":
+        ins = tuple(_aligned_rows(t) for t in ins)
+    strides = [t.stride(i) for t in (*ins, o) for i in range(3)]
     st = (ctypes.c_int64 * 15)(*strides)
+    ptrs = [t.data_ptr() for t in (*ins, u, s0, o, s_final)]
     with torch.cuda.device(r.device):
-        rc = _lib().repro_rwkv6_scan(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-            u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_final.data_ptr(),
-            st, b, h, s, kd, vd, _DTYPES[r.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kbuild.check(rc, "repro_rwkv6_scan")
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "tc":
+            rc = _lib(route).repro_rwkv6_scan_tc(
+                *ptrs, st, b, h, s, _DTYPES[r.dtype], stream)
+        else:
+            rc = _lib(route).repro_rwkv6_scan(
+                *ptrs, st, b, h, s, kd, vd, _DTYPES[r.dtype], stream)
+    kbuild.check(rc, f"repro_rwkv6_scan ({route})")
     RWKV6_SCAN_LAUNCHES += 1
+    RWKV6_SCAN_TC_LAUNCHES += int(route == "tc")
     return o, s_final
 
 
@@ -102,7 +143,7 @@ def rwkv6_scan(r, k, v, log_w, u, s0, *, chunk: int = 64):
     """r/k/log_w: (B, S, H, K); v: (B, S, H, V); u: (H, K); s0:
     (B, H, K, V) float32 -> (o (B, S, H, V) in r's dtype, s_final
     (B, H, K, V) float32). ``chunk`` is the plain version's chunk length
-    (the kernel steps one token at a time and needs none)."""
+    (the kernels keep their own)."""
     _check(r, k, v, log_w, u, s0)
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, log_w, u, s0, chunk=chunk)

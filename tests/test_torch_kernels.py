@@ -267,6 +267,122 @@ def test_segment_reduce_rejects_bad_layout(ids):
                            num_segments=3)
 
 
+@pytest.mark.parametrize("mode", ["sum", "count", "min", "max"])
+def test_segment_reduce_offsets_entry_equals_ids_entry(mode):
+    """The engine passes the groups' host row offsets; the ids entry
+    derives the same offsets and gives the same bits."""
+    ids, vals = _ids_vals(20_000, 7, 3, seed=11, pad=9)
+    offsets = np.searchsorted(ids[:20_000], np.arange(8))
+    by_ids = tsr.segment_reduce(_t(vals), _t(ids), num_segments=7, mode=mode)
+    by_offsets = tsr.segment_reduce(_t(vals), offsets=offsets, mode=mode)
+    assert torch.equal(by_ids, by_offsets)
+    np.testing.assert_array_equal(tsr.segment_offsets(_t(ids), 7), offsets)
+    with pytest.raises(ValueError, match="seg_ids or offsets"):
+        tsr.segment_reduce(_t(vals), _t(ids), offsets=offsets)
+    with pytest.raises(ValueError, match="segment offsets"):
+        tsr.segment_reduce(_t(vals), offsets=[0, 5, 3])
+
+
+_IDENTITY_NP = {"sum": 0.0, "count": 0.0, "min": np.inf, "max": -np.inf}
+_COMBINE_NP = {"sum": np.add, "count": np.add, "min": np.minimum,
+               "max": np.maximum}
+
+
+def _tree_np(x, mode):
+    """One CUDA block's fold of a chunk of <= CHUNK rows (C, len): the
+    halving tree over identity-padded slots, in float32."""
+    buf = np.full((x.shape[0], tsr.CHUNK), _IDENTITY_NP[mode], np.float32)
+    buf[:, :x.shape[1]] = 1.0 if mode == "count" else x
+    m = tsr.CHUNK
+    while m > 1:
+        m //= 2
+        buf = _COMBINE_NP[mode](buf[:, :m], buf[:, m:2 * m])
+    return buf[:, 0]
+
+
+def _emulate_fold_launches(vals, offsets, mode, rng):
+    """The CUDA path's launches on the host, from the very arrays the
+    wrapper uploads (``_launch_plan``): every block folds its chunk and
+    counts itself in its group, in a random finishing order, and the
+    group's last block folds the group's partials in slot order.
+    Partials start as NaN, so a fold that read one not yet written shows."""
+    packed, launches = tsr._launch_plan(offsets, mode)
+    packed, s1 = packed.copy(), len(offsets)
+
+    def chain(p):
+        return packed[s1 * p:s1 * (p + 1)].astype(np.int64)
+
+    out = vals
+    for p, fold, m1, blocks, outputs, at in launches:
+        m2 = "sum" if m1 == "count" else m1
+        offs, co = chain(p), chain(p + 1)
+        partial = np.full((vals.shape[0], blocks), np.nan, np.float32)
+        nxt = np.full((vals.shape[0], outputs), np.nan, np.float32) \
+            if fold else partial
+        for b in rng.permutation(blocks):
+            seg = int(np.searchsorted(co[:-1], b, side="right")) - 1
+            k = b - co[seg]
+            row0 = offs[seg] + k * tsr.CHUNK
+            partial[:, b] = _tree_np(
+                out[:, row0:min(offs[seg + 1], row0 + tsr.CHUNK)], m1)
+            if not fold:
+                continue
+            g = k // tsr.CHUNK
+            group = min(tsr.CHUNK, co[seg + 1] - co[seg] - g * tsr.CHUNK)
+            slot = chain(p + 2)[seg] + g
+            packed[at + slot] += 1
+            if packed[at + slot] == group:
+                p0 = co[seg] + g * tsr.CHUNK
+                nxt[:, slot] = _tree_np(partial[:, p0:p0 + group], m2)
+        out = nxt
+    return out, len(launches)
+
+
+@pytest.mark.parametrize("mode", ["sum", "count", "min", "max"])
+@pytest.mark.parametrize("rows,launches", [
+    # 1, 1023, 1024, 1025 and 1,048,576 rows a segment, with empty ones:
+    # two passes, one launch.
+    ([1, 0, 1023, 1024, 0, 1025, 1_048_576, 0], 1),
+    # 1,048,577 rows: 1025 chunks, three passes, two launches.
+    ([3, 1_048_577, 0], 2),
+    # At most 1024 rows a segment: one pass, one launch that folds nothing.
+    ([5, 0, 1024, 1], 1)])
+def test_segment_reduce_single_launch_fold_emulation(mode, rows, launches):
+    rng = np.random.default_rng(len(rows))
+    offsets = np.concatenate([[0], np.cumsum(rows)])
+    n = int(offsets[-1]) + 5             # rows past the last offset are ignored
+    vals = rng.normal(0.0, 100.0, (2, n)).astype(np.float32)
+    got, used = _emulate_fold_launches(vals, offsets, mode, rng)
+    assert used == launches
+    want = tsr.segment_reduce_plain(
+        _t(vals[:, :offsets[-1]]),
+        _t(np.repeat(np.arange(len(rows)), rows).astype(np.int32)),
+        len(rows), mode)
+    assert torch.equal(torch.from_numpy(got), want)
+
+
+@pytest.mark.parametrize("ids,s", [
+    ([0, 2, 1], 3),          # descending
+    ([0, -1, 1], 3),         # -1 before a valid id
+    ([-1, 0, 0], 3),         # -1 before a valid id, at the start
+    ([0, 1, 5], 3),          # id past num_segments
+    ([0, -2, -1], 3),        # id below -1
+    ([1, 1, 0, -1], 2)])     # descending before the padding
+def test_segment_offsets_derivation_rejects_bad_layout(ids, s):
+    with pytest.raises(ValueError, match="segment ids"):
+        tsr.segment_offsets(_t(np.asarray(ids, np.int32)), s)
+
+
+def test_segment_offsets_derivation_finds_each_start():
+    ids = np.asarray([0, 0, 3, 3, 3, 5, -1, -1], np.int32)
+    np.testing.assert_array_equal(tsr.segment_offsets(_t(ids), 7),
+                                  [0, 2, 2, 2, 5, 5, 6, 6])
+    np.testing.assert_array_equal(
+        tsr.segment_offsets(_t(np.full(3, -1, np.int32)), 2), [0, 0, 0])
+    np.testing.assert_array_equal(
+        tsr.segment_offsets(_t(np.zeros(0, np.int32)), 1), [0, 0])
+
+
 def test_kernel_library_name_tracks_source_hash():
     """The build cache keys each library on its source: the name is
     stable for one source and lives under the ignored build directory."""
