@@ -11,8 +11,8 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all at once); log
    ptxas' report for the three tensor-core kernels and the count of their
    HGMMA (``wgmma``: flash attention, the grouped matmul) or HMMA
-   (``mma.sync``: the RWKV-6 scan) instructions, which must not be 0; no
-   report may show spills;
+   (``mma.sync``: the RWKV-6 scan) instructions, which must not be 0, and
+   for the TMA-fed RG-LRU scan; no report may show spills;
 2. load   — generate TPC-H ``lineitem`` (6,000,000 rows, one object: one
    paper worker's ~182 MiB SF1000 partition) and ``orders`` (1,500,000
    rows) into the port's object store;
@@ -36,7 +36,8 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    models at full width and depth (random bf16 weights from a seeded
    ``torch.Generator``): RecurrentGemma-2B (``impl="flash"``: the flash
    attention and RG-LRU kernels launch once per ``local`` / ``rec`` layer
-   and batch, every flash launch on the tensor-core route), RWKV-6 1.6B
+   and batch, every flash launch on the tensor-core route, every RG-LRU
+   launch on the TMA route), RWKV-6 1.6B
    (``impl="flash"``: the RWKV-6 scan once per ``rwkv`` layer and batch, 48
    in all, every one on the tensor-core route) and DeepSeekMoE-16B (``impl="flash_moe"``: the grouped matmul
    three times per ``moe`` layer and batch, 162 in all, every one on the
@@ -58,11 +59,16 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    also at a strong decay, where the RWKV-6 scan is held against the step
    oracle, and the RWKV-6 scan at a ragged length and at an extreme decay
    (log_w near -60 and near -1e-3 mixed in each chunk), and on its
-   one-step-at-a-time route too, timed as the earlier kernel; the grouped
+   one-step-at-a-time route too, timed as the earlier kernel; the RG-LRU
+   scan also at near-one decays, against the recurrence stepped in
+   float64 too, at a ragged shape (1, 1000, 2564) and at one batch row,
+   and on its one-thread-a-lane route too, timed as the earlier kernel;
+   the grouped
    matmul also in float32, with its largest error in
    each 64-column block of the output, and at the gate/up shape on its
    ``mma.sync`` route too, timed as the earlier kernel); planted faults
-   must fail their checks (the RWKV-6 scan without its bonus u; one
+   must fail their checks (the RWKV-6 scan without its bonus u; the
+   RG-LRU scan with the first step of every 64-step stage dropped; one
    expert's output of the grouped matmul zeroed, and columns 64-127 of
    every 128 of it zeroed).
 
@@ -136,6 +142,9 @@ BF16_FLOPS_PER_S = 989e12         # H100 SXM dense bf16 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12         # H100 SXM dense TF32 (NVIDIA data sheet)
 RWKV_CHUNK = 16                   # chunk of the chunk-parallel form's bound
+# The RG-LRU scan at a ragged shape: S not a whole number of the TMA
+# kernel's 64-step stages, W not of its channel tiles.
+RGLRU_RAGGED = (1, 1000, 2564)
 
 
 def log(phase: str, **fields) -> None:
@@ -251,20 +260,24 @@ def _kernel_modules():
 def _route_counters():
     """Launches of a kernel's route, counted beside its kernel's own:
     flash attention's tensor-core route (bf16 at D = 64, 128, 256), the
-    grouped matmul's (bf16 with D and F multiples of 8) and the RWKV-6
-    scan's (K = V = 64)."""
+    grouped matmul's (bf16 with D and F multiples of 8), the RWKV-6
+    scan's (K = V = 64) and the RG-LRU scan's TMA route (W * 4 a multiple
+    of 16 bytes)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as rs
     return {"flash_attention_tc": (fa, "FLASH_ATTENTION_TC_LAUNCHES"),
             "gmm_tc": (mg, "GMM_TC_LAUNCHES"),
-            "rwkv6_scan_tc": (rs, "RWKV6_SCAN_TC_LAUNCHES")}
+            "rwkv6_scan_tc": (rs, "RWKV6_SCAN_TC_LAUNCHES"),
+            "rglru_scan_tma": (rg, "RGLRU_SCAN_TMA_LAUNCHES")}
 
 
-# The kernels whose every launch in ``serve`` must take the tensor-core
-# route, and the route's counter.
+# The kernels whose every launch in ``serve`` must take their redesigned
+# route (the tensor cores, or TMA for the RG-LRU scan), and the route's
+# counter.
 TC_ROUTES = {"flash_attention": "flash_attention_tc", "gmm": "gmm_tc",
-             "rwkv6_scan": "rwkv6_scan_tc"}
+             "rwkv6_scan": "rwkv6_scan_tc", "rglru_scan": "rglru_scan_tma"}
 
 
 def launch_counts() -> dict:
@@ -356,6 +369,7 @@ OWN_KERNELS = (("probe_range", "probe_range_kernel"),
                ("segment_reduce", "segment_reduce_fold"),
                ("flash_attention", "flash_attention_kernel"),
                ("flash_attention", "flash_attention_wgmma_kernel"),
+               ("rglru_scan", "rglru_scan_tma_kernel"),
                ("rglru_scan", "rglru_scan_kernel"),
                ("rwkv6_scan", "rwkv6_scan_tc_kernel"),
                ("rwkv6_scan", "rwkv6_scan_kernel"),
@@ -777,7 +791,7 @@ def run_serving(arch: str):
         if k in TC_ROUTES and routes[TC_ROUTES[k]] != launches[k]:
             raise AssertionError(f"{arch}: {routes[TC_ROUTES[k]]} of "
                                  f"{launches[k]} {k} launches took the "
-                                 "tensor-core route")
+                                 f"route {TC_ROUTES[k]}")
     first = np.asarray([r.completion[0] for r in done[:SERVE_BATCH]])
     return eng, reqs, {**launches, **routes}, first
 
@@ -1201,27 +1215,84 @@ def check_flash_f32(q, k, v, got, causal, window) -> dict:
     return out
 
 
+def rglru_truth(log_a, b_in, h0):
+    """The RG-LRU recurrence stepped in float64, and the same recurrence
+    on absolute values: for each h, the size of the terms it sums.
+    Returns (h_all, h_last, mag_all, mag_last)."""
+    import torch
+    a, bb = torch.exp(log_a.double()), b_in.double()
+    h, m = h0.double(), h0.double().abs()
+    out, mag = torch.empty_like(a), torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + bb[:, t]
+        m = a[:, t] * m + bb[:, t].abs()
+        out[:, t], mag[:, t] = h, m
+    return out, h, mag, m
+
+
 def check_rglru(recorded, launches):
+    """The RG-LRU scan against its plain version (the step oracle) within
+    ``SCAN_TOL``, every case on the TMA route: at the serving shape (and
+    there also on the seq route, timed beside it), at a strong decay
+    (log_a = -40, h0 = 1e6), at near-one decays (log_a in [-1e-4, 0], h0
+    near 0: each h sums some 4,096 terms), where both are also held
+    against the recurrence stepped in float64 and a planted fault (the
+    plain version with the first step of every stage dropped) must fail
+    both checks, at a ragged shape and at one batch row."""
     import torch
     from repro_torch.kernels import rglru_scan as rg
     (log_a, b_in, h0), _ = recorded["rglru_scan"]
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     f32 = dict(dtype=torch.float32, device=DEVICE, generator=gen)
+    shape = log_a.shape
     cases = [("serve", log_a, b_in, h0),
              ("strong_decay", torch.full_like(log_a, -40.0),
-              torch.randn(log_a.shape, **f32), torch.full_like(h0, 1e6))]
+              torch.randn(shape, **f32), torch.full_like(h0, 1e6)),
+             ("near_one", torch.rand(shape, **f32) * -1e-4,
+              torch.randn(shape, **f32), torch.randn(h0.shape, **f32) * 1e-3),
+             ("ragged", -torch.exp(torch.randn(RGLRU_RAGGED, **f32)),
+              torch.randn(RGLRU_RAGGED, **f32),
+              torch.randn((RGLRU_RAGGED[0], RGLRU_RAGGED[2]), **f32)),
+             ("b1", log_a[:1].contiguous(), b_in[:1].contiguous(),
+              h0[:1].contiguous())]
     rows = []
     for case, la, bb, hh in cases:
         b, s, w = la.shape
         kern = lambda: rg.rglru_scan(la, bb, hh)  # noqa: E731
         plain = lambda: rg.rglru_scan_plain(la, bb, hh)  # noqa: E731
+        n0 = rg.RGLRU_SCAN_TMA_LAUNCHES
         (g_all, g_last), (w_all, w_last) = kern(), plain()
         torch.cuda.synchronize()
+        if rg.RGLRU_SCAN_TMA_LAUNCHES != n0 + 1:
+            raise AssertionError(f"rglru_scan: the {case} case did not take "
+                                 "the TMA route")
         err = max(within(g_all, w_all, SCAN_TOL),
                   within(g_last, w_last, SCAN_TOL))
+        extra = {"bit_equal": bool(torch.equal(g_all, w_all)
+                                   and torch.equal(g_last, w_last))}
+        if case == "near_one":
+            extra.update(check_rglru_near_one(rg, la, bb, hh, g_all, g_last,
+                                              w_all, w_last))
+        del g_all, g_last
+        if case == "serve":
+            with replaced(rg, "_route", lambda f: lambda *a: "seq"):
+                q_all, q_last = kern()
+                torch.cuda.synchronize()
+                if rg.RGLRU_SCAN_TMA_LAUNCHES != n0 + 1:
+                    raise AssertionError("rglru_scan: the seq route took the "
+                                         "TMA kernel")
+                extra["seq_route_max_abs_err"] = max(
+                    within(q_all, w_all, SCAN_TOL),
+                    within(q_last, w_last, SCAN_TOL))
+                del q_all, q_last
+                seq_per = time_spread(kern)
+            extra.update(seq_route_ms=seq_per[len(seq_per) // 2],
+                         seq_route_ms_min=seq_per[0],
+                         seq_route_ms_max=seq_per[-1])
+        del w_all, w_last
         per = time_spread(kern)
         row = {"name": "rglru_scan", "route": "cuda",
-               "source": "src/repro_torch/csrc/rglru_scan.cu",
+               "source": "src/repro_torch/csrc/rglru_scan_tma.cu",
                "replaces": "src/repro/kernels/rglru_scan.py:21",
                "launches": launches["rglru_scan"], "max_abs_err": err,
                "ms": per[len(per) // 2], "ms_min": per[0],
@@ -1229,11 +1300,45 @@ def check_rglru(recorded, launches):
                "bound_ms": bound_ms(4 * (3 * b * s * w + 2 * b * w)),
                "bound_by": "bytes", "library_ms": None}
         log("kernel" if case == "serve" else "kernel_sweep", **row,
-            case=case, shape=[b, s, w],
-            log_a_range=[float(la.min()), float(la.max())])
+            case=case, shape=[b, s, w], kernel_route=rg._route(s, w),
+            tma_launches=launches["rglru_scan_tma"],
+            plan=rg._plan(b, s, w, sms=rg._sms(la.device.index))._asdict(),
+            log_a_range=[float(la.min()), float(la.max())], **extra)
         if case == "serve":
             rows.append({key: row[key] for key in ROW_KEYS})
     return rows
+
+
+def check_rglru_near_one(rg, la, bb, hh, g_all, g_last, w_all, w_last):
+    """At near-one decays: the kernel (g) and the plain version (w) each
+    against the recurrence stepped in float64 within ``SCAN_TOL`` of the
+    value plus ``SCAN_TOL`` of the summed terms' size (float32 rounds each
+    term by 2^-24 of its size), and a planted fault that must fail both
+    that check and the check against the plain version: the plain version
+    with the first step of every stage of the TMA ring (log_a = 0, b = 0
+    there) dropped."""
+    t_all, t_last, m_all, m_last = rglru_truth(la, bb, hh)
+    out = {}
+    for who, (x_all, x_last) in (("kernel", (g_all, g_last)),
+                                 ("plain", (w_all, w_last))):
+        out[f"{who}_vs_float64_max_abs_err"] = max(
+            within_scan(x_all, t_all, m_all, SCAN_TOL, SCAN_TOL,
+                        "rglru_scan"),
+            within_scan(x_last, t_last, m_last, SCAN_TOL, SCAN_TOL,
+                        "rglru_scan"))
+    la_f, bb_f = la.clone(), bb.clone()
+    la_f[:, ::rg.STEPS] = 0.0
+    bb_f[:, ::rg.STEPS] = 0.0
+    f_all, _ = rg.rglru_scan_plain(la_f, bb_f, hh)
+    if not (fails_check(lambda: within(f_all, w_all, SCAN_TOL))
+            and fails_check(lambda: within_scan(
+                f_all, t_all, m_all, SCAN_TOL, SCAN_TOL, "rglru_scan"))):
+        raise AssertionError("rglru_scan: the near-one checks do not see the "
+                             "steps at stage boundaries dropped")
+    out.update(planted_stage_boundary_max_abs_diff=float(
+        (f_all - w_all).abs().max()), planted_seen=True,
+        output_max=float(t_all.abs().max()), term_size_max=float(m_all.max()))
+    return out
 
 
 def fails_check(fn) -> bool:
@@ -1265,23 +1370,24 @@ def rwkv6_truth(r, k, v, log_w, u, s0):
     return torch.stack(out, 1), s, torch.stack(mag, 1), m
 
 
-def within_scan(got, want, mag, rel) -> float:
+def within_scan(got, want, mag, rel, tol=RWKV_TOL,
+                what="rwkv6_scan") -> float:
     """Max |got - want|; raises unless |got - want| <= rel*|want| +
-    RWKV_TOL*mag everywhere (and both are finite). A scan output sums
-    terms up to twice its own size and more where they cancel, and float32
-    errors scale with the terms, so the absolute part of the bound scales
-    with ``mag``, the size of the terms (``rwkv6_truth``)."""
+    tol*mag everywhere (and both are finite). A scan output sums terms up
+    to twice its own size and more where they cancel, and float32 errors
+    scale with the terms, so the absolute part of the bound scales with
+    ``mag``, the size of the terms (``rwkv6_truth``, ``rglru_truth``)."""
     import torch
     g, w = got.double(), want.double()
     err = (g - w).abs()
     if not (torch.isfinite(g).all() and torch.isfinite(w).all()
-            and (err <= rel * w.abs() + RWKV_TOL * mag).all()):
-        worst = int((err - rel * w.abs() - RWKV_TOL * mag).argmax())
+            and (err <= rel * w.abs() + tol * mag).all()):
+        worst = int((err - rel * w.abs() - tol * mag).argmax())
         raise AssertionError(
-            f"rwkv6_scan: max |diff| {float(err.max())}; worst at value "
+            f"{what}: max |diff| {float(err.max())}; worst at value "
             f"{float(w.flatten()[worst])}, terms of size "
             f"{float(mag.flatten()[worst])}, beyond {rel}*|value| + "
-            f"{RWKV_TOL}*size")
+            f"{tol}*size")
     return float(err.max())
 
 
@@ -1575,14 +1681,15 @@ MODEL_CHECKS = {
 }
 
 
-# The tensor-core libraries and the instruction each must hold: HGMMA
-# (``wgmma``) or HMMA (``mma.sync``).
+# The redesigned libraries and the tensor-core instruction each must
+# hold: HGMMA (``wgmma``), HMMA (``mma.sync``), or None (the TMA-fed
+# RG-LRU scan, which has none to count).
 TC_LIBS = {"flash_attention_wgmma": "HGMMA", "moe_gmm_wgmma": "HGMMA",
-           "rwkv6_scan_tc": "HMMA"}
+           "rwkv6_scan_tc": "HMMA", "rglru_scan_tma": None}
 
 
 def log_wgmma_builds(report) -> None:
-    """Each tensor-core library as built: ptxas' report (registers,
+    """Each redesigned library as built: ptxas' report (registers,
     shared memory, spills) and, where the toolkit has ``cuobjdump``, the
     count of its tensor-core instructions, HGMMA and HMMA; the one
     ``TC_LIBS`` names must not be 0, and ptxas' report must show no
@@ -1605,7 +1712,7 @@ def log_wgmma_builds(report) -> None:
         log("build_wgmma", library=name, ptxas=ptxas,
             hgmma_instructions=counts["HGMMA"],
             hmma_instructions=counts["HMMA"], spilled_bytes=spilled)
-        if counts[needed] == 0:
+        if needed is not None and counts[needed] == 0:
             raise AssertionError(f"the tensor-core library {name} holds no "
                                  f"{needed} instruction")
         if spilled:
