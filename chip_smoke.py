@@ -24,14 +24,29 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
 4. profile — each warm query's device busy time and each kernel's own
    device time (``torch.profiler``), and its heaviest host functions
    (``cProfile``);
-5. kernels — each query kernel's wrapper against its plain PyTorch
+5. query_serving — a ``QueryServer(backend="torch", device="cuda")`` on
+   the same store serves Q1, Q6, Q12 and the duplicate-key join twice
+   each, from two tenants submitted 0.25 s apart, on 16 workers:
+   interleaved on one shared pool, then serially on a new server, each
+   result held against the numpy backend's; the compiled-plan cache must
+   show 4 hits and 4 misses and the three query kernels must launch
+   inside each ``serve()``; the interleaved run again under
+   ``torch.profiler`` for the device's idle share; then a server with
+   its result cache on replays the four repeats with no kernel launch;
+6. adaptive — Q12 and the duplicate-key join on ``AdaptiveCoordinator``
+   (the adaptive and the static policy) on the card under seeded chaos
+   (dropped shuffle writes, killed and slowed fragments) on both storage
+   tiers, seeds 0, 1 and 2: every result the fault-free numpy backend's,
+   no query failed, both probes launched;
+7. kernels — each query kernel's wrapper against its plain PyTorch
    version on the card at the shapes the queries gave it, timed with CUDA
    events (median and spread of five batches) beside its bound, the plain
    version and one PyTorch library call; the segmented reduction through
    the host offsets the engine passes and through ids (derived on the
    card), with no wait for the card inside the call, and its host µs
    (``perf_counter``) beside its kernels' device µs (``torch.profiler``);
-6. serve  — ``ServingEngine`` answers 8 requests of 1,024-4,096 prompt
+   each row's launches are those of phases 3, 5 and 6;
+8. serve  — ``ServingEngine`` answers 8 requests of 1,024-4,096 prompt
    tokens and 32 new tokens each, in two batches of 4, with each of three
    models at full width and depth (random bf16 weights from a seeded
    ``torch.Generator``): RecurrentGemma-2B (``impl="flash"``: the flash
@@ -51,8 +66,8 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    float32, where two planted faults (decays rounded to bf16, log_w
    doubled) must fail the check; one prefill and one decode step are
    profiled;
-7. model kernels — after each model: its kernels against their plain
-   versions at the shapes its serving phase gave them, timed as in phase 5
+9. model kernels — after each model: its kernels against their plain
+   versions at the shapes its serving phase gave them, timed as in phase 7
    (flash attention, bf16 on the tensor-core route, also at InternLM2's and
    MusicGen-medium's shapes, D = 128 and 64, and in float32 on the
    CUDA-core route, where a window edge off by one must show; the scans
@@ -92,7 +107,19 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 RTOL = 1e-6
 QUERIES = ("q1", "q6", "q12", "dup_key_join")
-PHASES = ("queries", "serve")     # a quick call may run only some
+PHASES = ("queries", "query_serving", "adaptive", "serve")  # or some
+# The multi-query serving phase: each query twice, two tenants, submit
+# times this far apart (model time), on a fixed worker budget.
+SERVING_QUERIES = QUERIES + QUERIES
+SERVING_GAP_S = 0.25
+SERVING_BUDGET = 16
+# The adaptive phase: these queries under chaos, for these seeds, on the
+# adaptive and the static policy alike.
+ADAPTIVE_QUERIES = ("q12", "dup_key_join")
+ADAPTIVE_SEEDS = (0, 1, 2)
+CHAOS = {"drop_prob": 0.05, "kill_prob": 0.1}
+# The kernels the query engine's paths launch.
+QUERY_KERNELS = ("probe", "probe_range", "segment_reduce")
 
 # The serving phases, each model at full width and depth: its kernel
 # route, and for each of its kernels the layer kind that launches it and
@@ -340,15 +367,16 @@ def run_queries(store, keys):
     finally:
         for r in recorders.values():
             r.restore()
-    launches = {k: n for k, n in launch_counts().items()
-                if k in ("probe", "probe_range", "segment_reduce")}
+    launches = query_launches()
     fallbacks = dict(tc.FALLBACK_STATS)
+    wants = {}
     for name in QUERIES:
         t0 = time.perf_counter()
         want = coords["numpy"].execute(plan_for(name),
                                        query_id=f"{name}-numpy").result
         numpy_s = time.perf_counter() - t0
         check_result(name, results[name], want)
+        wants[name] = want
         log("query", name=name, rows=results[name].num_rows,
             torch_cold_s=walls[name][0], torch_warm_s=walls[name][1],
             numpy_s=numpy_s, matches_numpy=True)
@@ -359,7 +387,179 @@ def run_queries(store, keys):
     if any(fallbacks.values()):
         raise AssertionError(f"interpreted fallbacks ran: {fallbacks}")
     return launches, {k: r.args for k, r in recorders.items()}, \
-        {name: w[1] for name, w in walls.items()}
+        {name: w[1] for name, w in walls.items()}, wants
+
+
+def query_launches() -> dict:
+    return {k: n for k, n in launch_counts().items() if k in QUERY_KERNELS}
+
+
+def require_launches(phase: str, launches: dict, kernels) -> None:
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{phase}: {missing} never launched: "
+                             f"{launches}")
+
+
+def serve_queries(store, keys, wants, names=SERVING_QUERIES,
+                  interleave=True, srv=None, **server_kw):
+    """The multi-query serving path: a ``QueryServer`` on the card (a
+    fresh one unless ``srv``) serves ``names`` from two tenants,
+    submitted ``SERVING_GAP_S`` apart, each result held against the
+    numpy backend's. Returns the server, its report, the host wall of
+    ``serve()`` and the launches made inside it."""
+    import torch
+    from repro_torch.engine import compile as tc
+    from repro_torch.serve.query_server import QueryRequest, QueryServer
+    if srv is None:
+        srv = QueryServer(store, backend="torch", device=DEVICE,
+                          worker_budget=SERVING_BUDGET, **server_kw)
+        for t, k in keys.items():
+            srv.register_table(t, k)
+    reqs = [QueryRequest(plan_for(name), tenant=f"tenant{i % 2}",
+                         submit_t=SERVING_GAP_S * i)
+            for i, name in enumerate(names)]
+    tc.PLAN_CACHE.clear()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = srv.serve(reqs, interleave=interleave)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = query_launches()
+    if report.failures:
+        raise AssertionError(f"query_serving: {report.failures} failed")
+    for name, served in zip(names, report.queries):
+        check_result(name, served.result.result, wants[name])
+    return srv, report, wall, launches
+
+
+def run_query_serving(store, keys, wants):
+    """Phase ``query_serving``: the queries served twice over on one
+    shared pool, interleaved and then serially on a new server, with the
+    compiled-plan cache counted; the interleaved run again under
+    ``torch.profiler`` for the device's idle share; then a server with
+    its result cache on replays the repeats with no kernel launch.
+    Returns the launches of the two ``serve()`` runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    total = dict.fromkeys(QUERY_KERNELS, 0)
+    walls = {}
+    for mode, interleave in (("interleaved", True), ("serial", False)):
+        _, rep, wall, launches = serve_queries(
+            store, keys, wants, interleave=interleave, result_cache=False)
+        require_launches(f"query_serving {mode}", launches, QUERY_KERNELS)
+        if (rep.plan_cache_hits, rep.plan_cache_misses) != (4, 4):
+            raise AssertionError(
+                f"query_serving {mode}: plan cache {rep.plan_cache_hits} "
+                f"hits, {rep.plan_cache_misses} misses (want 4, 4)")
+        for k in total:
+            total[k] += launches[k]
+        walls[mode] = wall
+        log("query_serving", mode=mode, host_wall_s=wall,
+            makespan_s=rep.makespan_s, p50_latency_s=rep.p50_latency_s,
+            p99_latency_s=rep.p99_latency_s,
+            throughput_qps=rep.throughput_qps,
+            plan_cache_hits=rep.plan_cache_hits,
+            plan_cache_misses=rep.plan_cache_misses,
+            admission=rep.admission, launches=launches,
+            latencies_s=[s.latency_s for s in rep.queries],
+            matches_numpy=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve_queries(store, keys, wants, result_cache=False)
+        torch.cuda.synchronize()
+    summary = device_summary(prof, walls["interleaved"])
+    summary.pop("top_device_kernels_s")
+    log("query_serving_profile", mode="interleaved",
+        host_wall_s=walls["interleaved"], **summary)
+    # The result cache: the first four fill it, the four repeats replay.
+    half = len(QUERIES)
+    srv, first, _, _ = serve_queries(store, keys, wants,
+                                     names=SERVING_QUERIES[:half])
+    _, again, wall, launches = serve_queries(
+        store, keys, wants, names=SERVING_QUERIES[half:], srv=srv)
+    if first.result_cache_hits != 0 or again.result_cache_hits != half:
+        raise AssertionError(
+            f"query_serving: result cache replayed "
+            f"{again.result_cache_hits} of {half} repeats")
+    if any(launches.values()):
+        raise AssertionError(f"query_serving: replayed results launched "
+                             f"kernels: {launches}")
+    log("query_serving", mode="result_cache", host_wall_s=wall,
+        result_cache_hits=again.result_cache_hits, launches=launches,
+        matches_numpy=True)
+    return total
+
+
+def run_adaptive(store, keys, wants):
+    """Phase ``adaptive``: Q12 and the duplicate-key join on the
+    adaptive coordinator and on the static one, both on the card, under
+    the same seeded chaos (dropped shuffle writes, killed fragments,
+    slowed ones) on the object store and the KV store, for each seed.
+    Every result must be the fault-free numpy backend's and no query may
+    fail. Returns the launches of the phase."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.chaos import ChaosPolicy
+    from repro_torch.engine.adaptive import (ADAPTIVE, STATIC,
+                                             AdaptiveCoordinator)
+    # The static coordinator re-runs whole stages: one re-run per killed
+    # fragment of a stage, so it gets the ladder the reference's
+    # ``fault_recovery`` bench gives it.
+    static = dataclasses.replace(STATIC, max_recover_attempts=32)
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    try:
+        for seed in ADAPTIVE_SEEDS:
+            for tag, policy in (("adaptive", ADAPTIVE),
+                                ("static", static)):
+                for name in ADAPTIVE_QUERIES:
+                    chaos = ChaosPolicy(seed=seed, **CHAOS)
+                    store.chaos = chaos     # tables loaded fault-free
+                    coord = AdaptiveCoordinator(
+                        store, policy=policy, mode="provisioned",
+                        backend="torch", device=DEVICE, rng_seed=seed,
+                        chaos=chaos)
+                    coord.kv_store.chaos = chaos
+                    for t, k in keys.items():
+                        coord.register_table(t, k)
+                    t0 = time.perf_counter()
+                    res = coord.execute(plan_for(name),
+                                        query_id=f"{name}-{tag}-{seed}")
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    if res.failure is not None:
+                        raise AssertionError(f"adaptive {name} {tag} "
+                                             f"seed {seed}: {res.failure}")
+                    check_result(name, res.result, wants[name])
+                    log("adaptive", name=name, policy=tag, seed=seed,
+                        host_wall_s=wall, runtime_s=res.runtime_s,
+                        faas_cost_usd=res.faas_cost_usd,
+                        replans=res.replans,
+                        speculative_launched=res.speculative_launched,
+                        speculative_won=res.speculative_won,
+                        trace_lines=len(res.adaptive_trace),
+                        faults=chaos.stats(), failure=res.failure,
+                        matches_numpy=True)
+    finally:
+        store.chaos = None
+    launches = query_launches()
+    require_launches("adaptive", launches, ("probe", "probe_range"))
+    log("adaptive_phase", seconds=time.perf_counter() - t_phase,
+        launches=launches)
+    return launches
+
+
+def numpy_results(store, keys) -> dict:
+    """Each query's result on the numpy backend."""
+    from repro_torch.engine.coordinator import Coordinator
+    c = Coordinator(store, backend="numpy")
+    for t, k in keys.items():
+        c.register_table(t, k)
+    return {name: c.execute(plan_for(name), query_id=f"{name}-ref").result
+            for name in QUERIES}
 
 
 # Device kernel names of the port's own kernels, as the profiler lists
@@ -1753,7 +1953,7 @@ def main() -> int:
         name=torch.cuda.get_device_name(0), nvidia_smi=smi)
 
     kernels, failures = [], []
-    if "queries" in PHASES:
+    if {"queries", "query_serving", "adaptive"} & set(PHASES):
         t0 = time.perf_counter()
         store = ObjectStore()
         keys = {"lineitem": datagen.load_table(store, "lineitem",
@@ -1763,11 +1963,26 @@ def main() -> int:
         log("load", seconds=time.perf_counter() - t0,
             lineitem_rows=LINEITEM_ROWS, orders_rows=ORDERS_ROWS,
             stored_mib=store.total_bytes() / 2**20)
-        launches, recorded, warm_walls = run_queries(store, keys)
-        profile_queries(store, keys, warm_walls)
-        kernels += check_probes(recorded, launches) \
-            + check_segment_reduce(recorded, launches)
-        del store, keys, recorded
+        launches = dict.fromkeys(QUERY_KERNELS, 0)
+        recorded = wants = None
+        if "queries" in PHASES:
+            launches, recorded, warm_walls, wants = run_queries(store,
+                                                                keys)
+            profile_queries(store, keys, warm_walls)
+        if wants is None:
+            wants = numpy_results(store, keys)
+        # Each path's launches are counted from 0 just before it; the
+        # kernel rows carry their sum.
+        if "query_serving" in PHASES:
+            for k, n in run_query_serving(store, keys, wants).items():
+                launches[k] += n
+        if "adaptive" in PHASES:
+            for k, n in run_adaptive(store, keys, wants).items():
+                launches[k] += n
+        if recorded is not None:
+            kernels += check_probes(recorded, launches) \
+                + check_segment_reduce(recorded, launches)
+        del store, keys, recorded, wants
     if "serve" in PHASES:
         for arch in SERVE_ARCHS:
             eng, reqs, launches, first = run_serving(arch)

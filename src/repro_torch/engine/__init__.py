@@ -7,5 +7,16 @@ Author queries with the logical builder (``engine.logical``), lower them
 with ``engine.optimizer`` or hand them to ``engine.coordinator.
 Coordinator.run``. Execution runs on the ``torch`` backend on
 ``device="cuda"`` by default; ``backend="numpy"`` selects the
-interpreted float64 semantic reference.
+interpreted float64 semantic reference. ``python -m
+repro_torch.engine.explain <query>`` shows a query's logical plan, the
+applied optimizer rules and the physical pipelines.
 """
+
+
+def __getattr__(name):
+    # ``explain`` loads lazily so ``python -m repro_torch.engine.explain``
+    # doesn't trip runpy's already-imported warning.
+    if name == "explain":
+        import importlib
+        return importlib.import_module("repro_torch.engine.explain")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
