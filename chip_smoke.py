@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the query engine and
-LLM serving.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the query engine, LLM
+serving and training.
 
     python3 chip_smoke.py
 
@@ -85,7 +85,32 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    must fail their checks (the RWKV-6 scan without its bonus u; the
    RG-LRU scan with the first step of every 64-step stage dropped; one
    expert's output of the grouped matmul zeroed, and columns 64-127 of
-   every 128 of it zeroed).
+   every 128 of it zeroed);
+10. train — (a) ``Trainer`` on RecurrentGemma-2B at full width and depth
+   (3,549,934,080 parameters, bf16, ``impl="reference"``, ``remat=
+   "block"``, 4 microbatches of 2 x 2,048 tokens, 4 steps at the
+   launcher's schedule, a checkpoint at the last step): step 1's batch
+   first runs through ``forward_train`` on a float32 copy of the initial
+   weights; step 1's loss must lie within 2^-7 times that run's mean
+   largest |logit| of its loss, every loss be finite, three
+   leaves' step-1 gradients (the final norm, a middle ``rec`` layer's
+   ``gate_a``, a middle ``local`` layer's ``wq``) have cosine >= 0.99
+   against float32's, every update of those leaves equal AdamW
+   recomputed in float64 on the host within one bf16 ulp plus float32
+   rounding, and step 1's inputs rerun through the port's
+   ``update_leaf`` in float32 equal it within float32 rounding; planted
+   faults must fail (a layer's gradient
+   zeroed; the bias correction dropped; weight decay on the final norm,
+   a vector, which a bf16 step cannot show, so in float32). No port
+   kernel may launch (training runs the reference route). Step time,
+   tokens/s, the ``mfu`` share, peak device memory, the checkpoint's
+   save and restore, one profiled step (idle share, device time by
+   kernel class) and ``cost_report``. (b) One (rec, rec, local) unit at
+   full width, 512 tokens a sequence, 4 steps, checkpoints every 2,
+   under ``torch.use_deterministic_algorithms(True)`` (this sub-phase
+   only; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts): a run
+   preempted at step 3 and resumed from step 2 must end with a
+   checkpoint byte-equal to an uninterrupted run's.
 
 Ends with the card's name and power limit, a ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``. Any mismatch or exception exits
@@ -94,11 +119,16 @@ non-zero without the ``ok`` line. Imports nothing of JAX or ``repro``.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import re
 import subprocess
 import sys
 import time
+
+# cuBLAS reads this when CUDA starts; the deterministic resume of the
+# train phase needs it.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = pathlib.Path(__file__).resolve().parent
 LINEITEM_ROWS = 6_000_000
@@ -107,7 +137,7 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 RTOL = 1e-6
 QUERIES = ("q1", "q6", "q12", "dup_key_join")
-PHASES = ("queries", "query_serving", "adaptive", "serve")  # or some
+PHASES = ("queries", "query_serving", "adaptive", "serve", "train")
 # The multi-query serving phase: each query twice, two tenants, submit
 # times this far apart (model time), on a fixed worker budget.
 SERVING_QUERIES = QUERIES + QUERIES
@@ -172,6 +202,17 @@ RWKV_CHUNK = 16                   # chunk of the chunk-parallel form's bound
 # The RG-LRU scan at a ragged shape: S not a whole number of the TMA
 # kernel's 64-step stages, W not of its channel tiles.
 RGLRU_RAGGED = (1, 1000, 2564)
+# The train phase: (a) RecurrentGemma-2B at full width and depth, 8
+# sequences of 2,048 tokens a step (the config's 4 microbatches), at the
+# launcher's learning rate, which moves a bf16 weight of the model's
+# size (about 0.02) by several ulps a step, so the update check sees it;
+# (b) one (rec, rec, local) unit at full width for the bit-exact resume.
+TRAIN_ARCH = "recurrentgemma-2b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_SEED = 2048, 8, 4, 0
+TRAIN_LR = 1e-3
+GRAD_COSINE = 0.99    # the step's gradients against float32's, per leaf
+RESUME_LAYERS, RESUME_SEQ, RESUME_STEPS = 3, 512, 4
+RESUME_EVERY, RESUME_PREEMPT_AT = 2, 3
 
 
 def log(phase: str, **fields) -> None:
@@ -1873,6 +1914,511 @@ def check_gmm(recorded, launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Training: RecurrentGemma-2B through Trainer
+# ---------------------------------------------------------------------------
+
+def train_configs():
+    """(a)'s and (b)'s model configs, and the optimizer config: the
+    launcher's schedule for TRAIN_STEPS steps (warmup a tenth of the
+    steps, at least one)."""
+    import dataclasses
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.train import optimizer as opt_mod
+    cfg = ARCHS[TRAIN_ARCH]
+    return (cfg, dataclasses.replace(cfg, num_layers=RESUME_LAYERS),
+            opt_mod.AdamWConfig(lr=TRAIN_LR,
+                                warmup_steps=max(TRAIN_STEPS // 10, 1),
+                                total_steps=TRAIN_STEPS))
+
+
+def train_leaves(kinds) -> tuple:
+    """The final norm, the recurrence gate of the first ``rec`` layer
+    and the query projection of the first ``local`` layer from the
+    middle of the stack on."""
+    mid = len(kinds) // 2
+    rec = next(i for i in range(mid, len(kinds)) if kinds[i] == "rec")
+    local = next(i for i in range(mid, len(kinds)) if kinds[i] == "local")
+    return ("top.ln_f", f"layers.{rec}.rgl.gate_a",
+            f"layers.{local}.attn.wq")
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def float32_step_reference(trainer, cfg, leaves):
+    """Step 1's batch through ``forward_train`` on a float32 copy of the
+    initial weights (drawn again from the trainer's seed): the mean of
+    the microbatch losses, the gradients of ``leaves`` averaged over the
+    microbatches as the train step averages them, and the mean over
+    tokens of each token's largest |logit| (for the loss tolerance)."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    model, opt = trainer.init_state()
+    del opt
+    params = tfm.param_count(model)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.float()
+    named = dict(model.named_parameters())
+    for p in named.values():
+        p.requires_grad_(False)
+    wanted = [named[n].requires_grad_(True) for n in leaves]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in trainer.pipeline.batch_at(0).items()}
+    grads = [torch.zeros_like(p) for p in wanted]
+    losses, logit_max = [], []
+
+    def record_max(f):
+        def lm_head(model, cfg, x):
+            logits = f(model, cfg, x)
+            with torch.no_grad():
+                logit_max.append(float(torch.maximum(
+                    logits.amax(-1), -logits.amin(-1)).mean()))
+            return logits
+        return lm_head
+
+    mbs = steps._split_microbatches(batch, cfg.microbatches)
+    with replaced(tfm, "_lm_head", record_max):
+        for mb in mbs:
+            loss, _ = tfm.forward_train(model, cfg32, mb)
+            for g, d in zip(grads, torch.autograd.grad(loss, wanted)):
+                g.add_(d)
+            losses.append(float(loss.detach()))
+    del model, named, wanted
+    torch.cuda.empty_cache()
+    return {"loss": sum(losses) / len(losses), "losses": losses,
+            "grads": [g / len(mbs) for g in grads],
+            "logit_max_mean": sum(logit_max) / len(logit_max),
+            "parameters": params}
+
+
+def adamw_f64(p, g, m, v, *, step, grad_norm, cfg, decay,
+              bias_correction=True):
+    """``apply_updates``' arithmetic for one leaf in float64 on the host
+    (numpy): (new p, m, v) and the size of the terms each sums."""
+    import math
+    import numpy as np
+    p, g, m, v = (np.asarray(t.detach().double().cpu()) for t in (p, g, m, v))
+    warm = min(step / max(cfg.warmup_steps, 1), 1.0)
+    progress = min(max((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0),
+                   1.0)
+    lr = cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio)
+                          * 0.5 * (1 + math.cos(math.pi * progress)))
+    scale = min(1.0, cfg.grad_clip / max(grad_norm, 1e-9)) \
+        if cfg.grad_clip else 1.0
+    b1c = 1 - cfg.b1 ** step if bias_correction else 1.0
+    b2c = 1 - cfg.b2 ** step if bias_correction else 1.0
+    g = g * scale
+    m_new = m * cfg.b1 + g * (1 - cfg.b1)
+    v_new = v * cfg.b2 + g * g * (1 - cfg.b2)
+    delta = (m_new / b1c) / (np.sqrt(v_new / b2c) + cfg.eps)
+    if decay:
+        delta = delta + cfg.weight_decay * p
+    return ((p - lr * delta, np.abs(p) + np.abs(lr * delta)),
+            (m_new, np.abs(m * cfg.b1) + np.abs(g * (1 - cfg.b1))),
+            (v_new, np.abs(v * cfg.b2) + g * g * (1 - cfg.b2)))
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at |x| (8 significant bits; no finer than the
+    spacing of bfloat16's subnormals)."""
+    import numpy as np
+    _, e = np.frexp(np.abs(x))
+    return np.maximum(np.ldexp(1.0, e - 8), 2.0 ** -133)
+
+
+def update_error(got, want, inputs):
+    """Largest |got - want| over its allowance: 16 float32 roundings of
+    the size of the terms the result sums (the card computes in float32,
+    with b1, b2 and the bias corrections themselves rounded to float32:
+    up to 4 roundings each, 14 along p's update), plus, for a bfloat16
+    result, one bfloat16 ulp of ``want`` (the card rounds its float32
+    value once, and float64 may round it across the edge; where the
+    terms cancel, the float32 part is the larger). A result passes at 1
+    or below. Returns (error, the worst element's ``inputs`` (p, g, m,
+    v), got and want)."""
+    import numpy as np
+    import torch
+    ref, terms = want
+    g = np.asarray(got.detach().double().cpu()).ravel()
+    ref, terms = ref.ravel(), terms.ravel()
+    allow = 16 * 2.0 ** -24 * terms + 2.0 ** -149
+    if got.dtype == torch.bfloat16:
+        allow = allow + bf16_ulp(ref)
+    ratio = np.abs(g - ref) / allow
+    i = int(np.argmax(ratio))
+    return float(ratio[i]), {
+        "index": i, "got": float(g[i]), "want": float(ref[i]),
+        **{k: float(t.detach().reshape(-1)[i]) for k, t in zip("pgmv",
+                                                               inputs)}}
+
+
+def check_updates(records, cfg, decays) -> dict:
+    """Each recorded update of the named leaves (bfloat16 parameters and
+    moments, every step) against ``adamw_f64``; then step 1's inputs
+    through the port's ``update_leaf`` in float32 on the card, where the
+    planted faults (bias correction dropped; weight decay on the final
+    norm) must fail."""
+    import torch
+    from repro_torch.train import optimizer as opt_mod
+    worst = {}
+    for rec in records:
+        for name, (p, g, m, v) in rec["before"].items():
+            want = adamw_f64(p, g, m, v, step=rec["step"],
+                             grad_norm=rec["grad_norm"], cfg=cfg,
+                             decay=decays[name])
+            for got, w, what in zip(rec["after"][name], want,
+                                    ("p", "mu", "nu")):
+                key = f"{name}.{what}"
+                err, where = update_error(got, w, rec["before"][name])
+                if err >= worst.get(key, (0.0,))[0]:
+                    worst[key] = (err, {"step": rec["step"], **where})
+    first = records[0]
+    step = torch.tensor(first["step"], dtype=torch.int32, device=DEVICE)
+    gnorm = torch.tensor(first["grad_norm"], dtype=torch.float32,
+                         device=DEVICE)
+    lr = opt_mod.schedule(step, cfg)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    b1c, b2c = 1 - cfg.b1 ** step.float(), 1 - cfg.b2 ** step.float()
+    faults = {"sound": {}, "bias_correction_dropped": {},
+              "decay_on_vectors": {}}
+
+    def run(name, dtype, fault):
+        p, g, m, v = (t.to(dtype) if i != 1 else t
+                      for i, t in enumerate(first["before"][name]))
+        p, m, v = p.clone(), m.clone(), v.clone()
+        one = torch.ones((), device=DEVICE)
+        opt_mod.update_leaf(
+            p, g, m, v, lr=lr, scale=scale,
+            b1c=one if fault == "bias_correction_dropped" else b1c,
+            b2c=one if fault == "bias_correction_dropped" else b2c,
+            decay=decays[name] or fault == "decay_on_vectors", cfg=cfg)
+        want = adamw_f64(*first["before"][name], step=first["step"],
+                         grad_norm=first["grad_norm"], cfg=cfg,
+                         decay=decays[name])
+        return max(update_error(got, w, first["before"][name])[0]
+                   for got, w in zip((p, m, v), want))
+
+    for fault in faults:
+        for name in first["before"]:
+            faults[fault][name] = {
+                "float32": run(name, torch.float32, fault),
+                "bfloat16": run(name, torch.bfloat16, fault)}
+    return {"worst": worst, "step1_rerun": faults}
+
+
+def cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    den = float(a.norm() * b.norm())
+    return float(a @ b) / den if den else 0.0
+
+
+def kernel_class(name: str) -> str:
+    n = name.lower()
+    for cls, marks in (("gemm", ("gemm", "nvjet", "xmma", "cutlass",
+                                 "cublas")),
+                       ("softmax", ("softmax",)),
+                       ("reduce", ("reduce", "norm")),
+                       ("index", ("index", "scatter", "gather", "embedding")),
+                       ("copy/cat", ("cat", "copy")),
+                       ("elementwise", ("elementwise", "vectorized",
+                                        "unrolled"))):
+        if any(m in n for m in marks):
+            return cls
+    return "other"
+
+
+def profile_train_step(step_fn, model, opt_state, batch, card):
+    """One train step under ``torch.profiler``: the device's idle share
+    of its wall and its device time by kernel class."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt_state, metrics = step_fn(model, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_class: dict = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        cls = by_class.setdefault(kernel_class(evt.key), [0, 0.0])
+        cls[0] += evt.count
+        cls[1] += evt.self_device_time_total / 1e6
+    summary = device_summary(prof, wall)
+    log("train_profile", card=card, wall_s=wall,
+        loss=float(metrics["loss"]), **summary,
+        device_s_by_class=dict(sorted(
+            ((k, {"kernels": n, "device_s": t})
+             for k, (n, t) in by_class.items()),
+            key=lambda kv: -kv[1]["device_s"])))
+    return opt_state
+
+
+def train_flops(cfg, params: int, tokens: int, seq: int) -> float:
+    """Model FLOPs of one step: 6 per matmul parameter per token (the
+    embedding table is a lookup and counts none) plus the attention
+    term, 3 x 4 x H x Dh per attended (query, key) pair of each local
+    layer (forward and backward; the recomputed forward not counted)."""
+    kinds = cfg.layer_kinds()
+    w = min(cfg.window or seq, seq)
+    pairs = sum(min(q + 1, w) for q in range(seq)) * (tokens // seq)
+    attn = 12 * cfg.num_heads * cfg.head_dim * pairs * kinds.count("local")
+    return 6.0 * (params - cfg.vocab_size * cfg.d_model) * tokens + attn
+
+
+def run_train(card: str) -> None:
+    """(a): ``Trainer`` on RecurrentGemma-2B at full width and depth,
+    bf16, ``impl="reference"``, ``remat="block"``, 4 microbatches of 2 x
+    2048 tokens, TRAIN_STEPS steps, a checkpoint at the last step; the
+    loss, gradient and optimizer checks with their planted faults; the
+    checkpoint restored and one more step profiled."""
+    import math
+    import torch
+    from repro_torch.checkpoint import object_store_ckpt as ckpt
+    from repro_torch.core.storage_service import ObjectStore
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg, _, opt_cfg = train_configs()
+    if cfg.remat != "block" or cfg.microbatches != 4:
+        raise AssertionError(f"{cfg.name}: remat {cfg.remat!r}, "
+                             f"{cfg.microbatches} microbatches")
+    store = ObjectStore()
+    trainer = Trainer(cfg, store, DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=TRAIN_SEED),
+        opt_cfg, TrainerConfig(total_steps=TRAIN_STEPS,
+                               checkpoint_every=TRAIN_STEPS,
+                               seed=TRAIN_SEED, log_every=1),
+        device=DEVICE)
+    leaves = train_leaves(tfm.layer_kinds(cfg))
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    t0 = time.perf_counter()
+    ref = float32_step_reference(trainer, cfg, leaves)
+    log("train_float32_reference", card=card, arch=cfg.name,
+        seconds=time.perf_counter() - t0, parameters=ref["parameters"],
+        loss=ref["loss"], microbatch_losses=ref["losses"],
+        logit_max_mean=ref["logit_max_mean"], leaves=list(leaves))
+
+    records = []
+
+    def recording(f):
+        def apply_updates(params, grads, state, ocfg):
+            named = opt_mod.named_tensors(params)
+            before = {n: tuple(t.detach().clone() for t in (
+                named[n], grads[n], state.mu[n], state.nu[n]))
+                for n in leaves}
+            out = f(params, grads, state, ocfg)
+            records.append({
+                "step": int(out[1].step), "grad_norm":
+                float(out[2]["grad_norm"]), "before": before,
+                "after": {n: tuple(t.detach().clone() for t in (
+                    named[n], out[1].mu[n], out[1].nu[n]))
+                    for n in leaves}})
+            return out
+        return apply_updates
+
+    steps = Timed(trainer.step_fn)
+    trainer.step_fn = steps
+    save_s = []
+    checkpoint = trainer._checkpoint
+
+    def timed_checkpoint(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        checkpoint(*args)
+        save_s.append(time.perf_counter() - t)
+    trainer._checkpoint = timed_checkpoint
+
+    state_bytes = 6 * ref["parameters"]       # bf16 weights, mu, nu
+    avail = host_available_bytes()
+    # The store keeps the checkpoint, and saving copies one leaf at a
+    # time (the largest, the LM head, 1.3 GB) twice more.
+    use_trainer = avail >= state_bytes * 1.25
+    log("train_host_memory", card=card, available_bytes=avail,
+        checkpoint_bytes=state_bytes, path="Trainer.run" if use_trainer
+        else "make_train_step (the host cannot hold the checkpoint)")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with replaced(opt_mod, "apply_updates", recording):
+        t0 = time.perf_counter()
+        if use_trainer:
+            out = trainer.run()
+        else:
+            model, opt_state = trainer.init_state()
+            for step in range(TRAIN_STEPS):
+                batch = {k: torch.from_numpy(v).to(DEVICE) for k, v
+                         in trainer.pipeline.batch_at(step).items()}
+                opt_state, m = trainer.step_fn(model, opt_state, batch)
+                trainer.metrics_log.append(
+                    {"step": step + 1, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"])})
+            del model, opt_state
+            out = {"status": "done", "metrics": trainer.metrics_log,
+                   "cost": trainer.cost_report(time.perf_counter() - t0)}
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    if out["status"] != "done" or any(launches.values()):
+        raise AssertionError(f"train: {out['status']}, kernel launches "
+                             f"{launches} (impl='reference' runs none)")
+    losses = [m["loss"] for m in out["metrics"]]
+    later = sorted(steps.seconds[1:])
+    median = later[len(later) // 2]
+    flops = train_flops(cfg, ref["parameters"], tokens, TRAIN_SEQ)
+    log("train_steps", card=card, arch=cfg.name, steps=TRAIN_STEPS,
+        tokens_per_step=tokens, microbatches=cfg.microbatches,
+        step_s=steps.seconds, step_s_median_2_to_4=median,
+        step_s_min_2_to_4=later[0], step_s_max_2_to_4=later[-1],
+        tokens_per_s=tokens / median, losses=losses,
+        grad_norms=[m["grad_norm"] for m in out["metrics"]], wall_s=wall)
+    log("train_mfu", card=card, model_flops_per_step=flops,
+        mfu=flops / median / BF16_FLOPS_PER_S,
+        peak_flops_per_s=BF16_FLOPS_PER_S)
+    log("train_memory", card=card, max_memory_allocated=peak,
+        max_memory_allocated_gib=peak / 2**30)
+    log("train_cost", card=card, **out["cost"])
+
+    # Loss: the bf16 step's loss against float32 on the same batch. A
+    # token's loss is logsumexp - gold logit; rounding the bf16 LM head's
+    # logits (half an ulp, 2^-9 of each) moves it by at most 2^-9 (max|l|
+    # + |l_gold|) <= 2^-8 max|l|; the layers below round their bf16
+    # activations as well, which the tolerance allows once more: 2^-7
+    # times the mean over tokens of the largest |logit|, from this run.
+    loss_tol = 2.0 ** -7 * ref["logit_max_mean"]
+    loss_err = abs(losses[0] - ref["loss"])
+    # Gradients: the step's (float32 sums of bf16 microbatch gradients)
+    # against float32's; a planted fault zeroes one layer's gradient.
+    first = records[0]
+    cos = {n: cosine(first["before"][n][1], g)
+           for n, g in zip(leaves, ref["grads"])}
+    zeroed = cosine(torch.zeros_like(first["before"][leaves[1]][1]),
+                    ref["grads"][1])
+    decays = {n: opt_mod.decays(n, first["before"][n][0]) for n in leaves}
+    upd = check_updates(records, opt_cfg, decays)
+    log("train_checks", card=card, loss_step1=losses[0],
+        loss_float32=ref["loss"], loss_error=loss_err, loss_tol=loss_tol,
+        gradient_cosine=cos, gradient_cosine_min=GRAD_COSINE,
+        planted_zeroed_layer_cosine=zeroed,
+        update_error_over_allowance=upd["worst"],
+        step1_rerun_error_over_allowance=upd["step1_rerun"])
+    failed = []
+    if not all(math.isfinite(x) for x in losses):
+        failed.append(f"losses {losses}")
+    if not loss_err <= loss_tol:
+        failed.append(f"step-1 loss {losses[0]} vs float32 {ref['loss']}")
+    failed += [f"gradient cosine of {n}: {c}" for n, c in cos.items()
+               if not c >= GRAD_COSINE]
+    if zeroed >= GRAD_COSINE:
+        failed.append("a zeroed layer gradient passes the gradient check")
+    failed += [f"update of {k}: {e} allowances at {where}" for k, (e, where)
+               in upd["worst"].items() if not e <= 1.0]
+    rerun = upd["step1_rerun"]
+    failed += [f"float32 update of {n}: {e['float32']} allowances"
+               for n, e in rerun["sound"].items() if not e["float32"] <= 1]
+    for fault in ("bias_correction_dropped", "decay_on_vectors"):
+        if not any(e["float32"] > 1 for e in rerun[fault].values()):
+            failed.append(f"the planted fault {fault} passes the update "
+                          "check")
+    if failed:
+        raise AssertionError("train: " + "; ".join(failed))
+    del records, first, ref
+
+    # The checkpoint, restored onto the card, and one more step profiled.
+    if use_trainer:
+        reads = store.stats.read_bytes
+        model, opt_state = trainer.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, step = ckpt.restore_checkpoint(store, "ckpt", model,
+                                              device=DEVICE)
+        opt_state, _ = ckpt.restore_checkpoint(store, "ckpt-opt", opt_state,
+                                               device=DEVICE)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        log("train_checkpoint", card=card, step=step, save_s=save_s,
+            saved_bytes=store.stats.write_bytes, stored_bytes=
+            store.total_bytes(), objects=len(store.list("ckpt")),
+            restore_s=restore_s,
+            restored_bytes=store.stats.read_bytes - reads)
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+                 trainer.pipeline.batch_at(TRAIN_STEPS).items()}
+        profile_train_step(steps.fn, model, opt_state, batch, card)
+        del model, opt_state, batch
+    del trainer, store
+    torch.cuda.empty_cache()
+
+
+def run_resume(card: str) -> None:
+    """(b): bit-exact resume at full width, one (rec, rec, local) unit,
+    under ``torch.use_deterministic_algorithms(True)`` (this sub-phase
+    only): an uninterrupted run of RESUME_STEPS steps against one
+    preempted at step RESUME_PREEMPT_AT and resumed from the checkpoint
+    of step RESUME_EVERY; their final checkpoints (parameters, moments,
+    step) must be byte-equal."""
+    import torch
+    from repro_torch.core.storage_service import ObjectStore
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.trainer import Preempted, Trainer, TrainerConfig
+    _, cfg, opt_cfg = train_configs()
+    data = DataConfig(seq_len=RESUME_SEQ, global_batch=TRAIN_BATCH,
+                      seed=TRAIN_SEED)
+    tcfg = TrainerConfig(total_steps=RESUME_STEPS,
+                         checkpoint_every=RESUME_EVERY, seed=TRAIN_SEED,
+                         log_every=1)
+
+    def bomb(step):
+        if step == RESUME_PREEMPT_AT:
+            raise Preempted()
+
+    whole, resumed = ObjectStore(), ObjectStore()
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = Trainer(cfg, whole, data, opt_cfg, tcfg, device=DEVICE).run()
+        cut = Trainer(cfg, resumed, data, opt_cfg, tcfg,
+                      preemption_hook=bomb, device=DEVICE).run()
+        out2 = Trainer(cfg, resumed, data, opt_cfg, tcfg,
+                       device=DEVICE).run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    wall = time.perf_counter() - t0
+    base = f"step-{RESUME_STEPS:08d}"
+    keys = [k for p in ("ckpt", "ckpt-opt")
+            for k in whole.list(f"{p}/{base}/")]
+    differ = [k for k in keys if whole.get(k) != resumed.get(k)]
+    log("train_resume", card=card, layers=cfg.num_layers,
+        seq_len=RESUME_SEQ, steps=RESUME_STEPS,
+        checkpoint_every=RESUME_EVERY, preempted=cut,
+        losses=[m["loss"] for m in out["metrics"]],
+        resumed_losses=[m["loss"] for m in out2["metrics"]],
+        objects_compared=len(keys), objects_differing=len(differ),
+        wall_s=wall)
+    if cut["status"] != "preempted" or \
+            cut["resumable_from"] != RESUME_EVERY:
+        raise AssertionError(f"train_resume: preemption gave {cut}")
+    if out2["status"] != "done" or not keys or differ:
+        raise AssertionError(f"train_resume: {len(differ)} of {len(keys)} "
+                             f"checkpoint objects differ: {differ[:4]}")
+    del whole, resumed
+    torch.cuda.empty_cache()
+
+
 MODEL_CHECKS = {
     "recurrentgemma-2b": lambda rec, n: check_flash(rec, n)
     + check_rglru(rec, n),
@@ -1995,6 +2541,9 @@ def main() -> int:
             kernels += MODEL_CHECKS[arch](recorded, launches)
             del recorded
             torch.cuda.empty_cache()
+    if "train" in PHASES:
+        run_train(smi)
+        run_resume(smi)
 
     if failures:
         raise AssertionError("; ".join(failures))

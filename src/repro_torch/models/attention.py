@@ -1,6 +1,7 @@
 """GQA attention with RoPE / M-RoPE, optional QKV bias, sliding windows,
-KV-cache prefill and decode, and the flash-attention kernel switch (the
-port of ``repro.models.attention``).
+KV-cache prefill and decode, the flash-attention kernel switch and the
+reference's blocked and local stand-ins for it (the port of
+``repro.models.attention``).
 
 Layouts as in the reference: activations (B, S, D); q/k/v (B, S, H, Dh);
 weights ``wq`` (D, H, Dh), ``wk``/``wv`` (D, Hkv, Dh), ``wo`` (H, Dh, D).
@@ -93,16 +94,103 @@ def _sdpa(q, k, v, *, causal: bool, window: int = 0,
     return out.reshape(b, sq, h, dh)
 
 
+def _blocked_sdpa(q, k, v, *, causal: bool, window: int = 0,
+                  block_k: int = 1024) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch: a loop over KV blocks with
+    a running (max, denominator, accumulator) online softmax. Never
+    builds the (Sq, Skv) scores, an O(Sq x block_k) working set: the
+    reference's stand-in for the flash kernel, differentiable."""
+    b, sq, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    block_k = min(block_k, skv)
+    assert skv % block_k == 0
+    dev = q.device
+    qf = q.reshape(b, sq, hkv, g, dh).float()
+    scale = 1.0 / math.sqrt(dh)
+    q_pos = torch.arange(sq, device=dev)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, sq, dh), dtype=torch.float32, device=dev)
+    for start in range(0, skv, block_k):
+        kc = k[:, start:start + block_k].float()
+        vc = v[:, start:start + block_k].float()
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc) * scale
+        k_pos = start + torch.arange(block_k, device=dev)
+        mask = torch.ones((sq, block_k), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        logits = torch.where(mask, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        safe = m_new > NEG_INF / 2
+        alpha = torch.where(safe, torch.exp(m - m_new), 0.0)
+        p = torch.where(safe[..., None], torch.exp(logits - m_new[..., None]),
+                        0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                                    vc)
+        m = m_new
+    out = acc / l.clamp_min(1e-20)[..., None]
+    out = out.movedim(-2, 1).reshape(b, sq, h, dh)
+    return out.to(q.dtype)
+
+
+def _local_sdpa(q, k, v, *, window: int) -> torch.Tensor:
+    """Sliding-window attention by chunks of ``window`` queries, each
+    attending within its chunk and the previous one (exact for window <=
+    chunk): O(S x 2W) compute and memory, in place of the S x S scores
+    and their masked blocks."""
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    chunk = window
+    pad = (-s) % chunk
+    if pad:
+        q, k, v = (torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+                   for a in (q, k, v))
+    sp = q.shape[1]
+    nc = sp // chunk
+    dev = q.device
+    qc = q.reshape(b, nc, chunk, hkv, g, dh).float()
+    kc = k.reshape(b, nc, chunk, hkv, dh).float()
+    vc = v.reshape(b, nc, chunk, hkv, dh).float()
+    # previous chunk's K/V (zeros before the first chunk)
+    kprev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
+    vprev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
+    kk = torch.cat([kprev, kc], dim=2)                 # (B, nc, 2W, hkv, d)
+    vv = torch.cat([vprev, vc], dim=2)
+    scale = 1.0 / math.sqrt(dh)
+    qpos = torch.arange(chunk, device=dev)[:, None] + chunk   # [W, 2W)
+    kpos = torch.arange(2 * chunk, device=dev)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    first = mask & (kpos >= chunk)                     # no previous chunk
+    # One chunk at a time: the live set is O(B x W x 2W x H), not
+    # O(B x S x 2W x H).
+    outs = []
+    for c in range(nc):
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qc[:, c],
+                              kk[:, c]) * scale
+        logits = torch.where(first if c == 0 else mask, logits, NEG_INF)
+        p = torch.softmax(logits, dim=-1)
+        outs.append(torch.einsum("bhgqk,bkhd->bqhgd", p, vv[:, c]))
+    out = torch.stack(outs, dim=1).reshape(b, sp, h, dh)[:, :s]
+    return out.to(q.dtype)
+
+
 def _attend(q, k, v, *, window: int, impl: str):
     if impl == "flash":
         return flash_kernel.flash_attention(q, k, v, causal=True,
                                             window=window)
+    if impl == "blocked" and window and window <= q.shape[1]:
+        return _local_sdpa(q, k, v, window=window)
+    if impl == "blocked":
+        return _blocked_sdpa(q, k, v, causal=True, window=window)
     # "flash_moe" selects the grouped-matmul kernel for the MoE layers and
     # the reference attention, as in the reference.
     if impl not in ("reference", "flash_moe"):
-        raise NotImplementedError(
-            f"attention impl {impl!r} is not ported (the blocked and local "
-            "stand-ins wait for ROADMAP A.11)")
+        raise ValueError(f"unknown attention impl {impl!r}")
     return _sdpa(q, k, v, causal=True, window=window)
 
 

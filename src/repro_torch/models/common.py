@@ -22,8 +22,9 @@ from torch import nn
 class Params(nn.Module):
     """A nested group of parameters, indexable like the reference's dicts.
 
-    Tensors become frozen ``nn.Parameter``s (serving needs no gradients),
-    nested mappings become child ``Params``."""
+    Tensors become ``nn.Parameter``s that do not require gradients
+    (serving needs none; the train step switches them on), nested
+    mappings become child ``Params``."""
 
     def __init__(self, tree: Mapping):
         super().__init__()

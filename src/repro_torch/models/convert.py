@@ -1,4 +1,5 @@
-"""Weight converter: the reference's parameter tree into the port's model.
+"""Weight converter: the reference's parameter tree into the port's model,
+and back.
 
 The reference (``repro.models.transformer.init_model``, values taken with
 ``split_tree``) keeps top-level tensors (``embed``, ``ln_f``,
@@ -9,6 +10,8 @@ repeat r, ``sub0[r], sub1[r], ...``. ``unstack_segments`` walks that
 order; every weight keeps the reference's layout (``wq`` (D, H, Dh) and
 so on), so the conversion is a copy. Takes numpy arrays (convert with
 ``np.asarray`` first) and imports nothing of the reference.
+``to_reference`` stacks the port's layers back into that tree, for the
+parameters or for any dict in their layout (gradients, moments).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
@@ -62,3 +66,50 @@ def from_reference(cfg: ArchConfig, params: dict, *, device="cuda",
     layers = [tfm.Layer(kind, _to_torch(tree, device, dtype))
               for kind, tree in unstack_segments(cfg, params["segments"])]
     return tfm.Model(top, layers)
+
+
+def _nest(flat: dict) -> dict:
+    """{"attn.wq": a, ...} -> {"attn": {"wq": a}, ...}."""
+    tree: dict = {}
+    for name, value in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def _stack(trees: list) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    # numpy has no bfloat16: such leaves come back widened, exactly.
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def to_reference(cfg: ArchConfig, tree) -> dict:
+    """The reference's parameter tree (numpy arrays, segments stacked on
+    a leading layers axis) from the port's ``Model`` or from a dict in
+    its ``named_parameters()`` layout (gradients, optimizer moments).
+    bfloat16 leaves come back as float32."""
+    flat = dict(tree.named_parameters()) if isinstance(tree, nn.Module) \
+        else tree
+    out = {k: _host(flat[f"top.{k}"]) for k in ("embed", "ln_f", "lm_head")
+           if f"top.{k}" in flat}
+    layers = _nest({name[len("layers."):]: _host(t)
+                    for name, t in flat.items()
+                    if name.startswith("layers.")})
+    segments, i = [], 0
+    for unit, repeats in tfm.compute_segments(cfg):
+        seg = {f"sub{j}": _stack([layers[str(i + r * len(unit) + j)]
+                                  for r in range(repeats)])
+               for j in range(len(unit))}
+        segments.append(seg)
+        i += len(unit) * repeats
+    out["segments"] = segments
+    return out

@@ -13,7 +13,7 @@ matmul kernel under ``use_kernel``, the model's ``impl="flash_moe"``;
 by gate * keep. Shared experts (DeepSeekMoE) run densely beside them.
 
 The reference's expert-parallel path (``_moe_ep``, ``shard_map`` with
-``all_to_all``) waits for the distribution slice (ROADMAP A.11).
+``all_to_all``) waits for the distribution slice (ROADMAP A.5).
 """
 from __future__ import annotations
 

@@ -10,11 +10,13 @@ linear. The cell:
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
 
 ``rglru_block`` runs the recurrence through the hand-written scan kernel
-(``use_kernel=True``, the model's ``impl="flash"``) or through the plain
-sequential oracle (the reference's associative ``linear_scan`` computes
-the same recurrence; the two agree within float32 rounding). Decode
-carries (h, conv tail) state. The reference's chunked variants
-(``scan_impl`` ``chunked`` / ``chunked_block``) are not ported.
+(``use_kernel=True``, the model's ``impl="flash"``, forward only) or, as
+the reference does, through ``linear_scan``: a log-depth scan over time
+that autograd differentiates (training runs this route). ``scan_impl``
+``chunked`` runs it chunk by chunk with the state carried between
+chunks, ``chunked_block`` the whole block per chunk. The sequential
+``kernels.ref.rglru_scan_ref`` stays the oracle. Decode carries (h, conv
+tail) state.
 """
 from __future__ import annotations
 
@@ -24,7 +26,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ref as kref
 from repro_torch.kernels import rglru_scan as scan_kernel
 from repro_torch.models.common import dense_init, zeros_init
 
@@ -85,13 +86,50 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
 
 
+def linear_scan(log_a, b, h0):
+    """h_t = exp(log_a_t) * h_{t-1} + b_t over time, in log depth.
+
+    log_a, b: (B, S, W) fp32; h0: (B, W). Returns (h_all, h_last). A
+    Hillis-Steele scan of the reference's associative ``combine``:
+    after the level of distance d, position t holds the composition of
+    steps (t - 2d, t], so each level is two whole-tensor products and
+    autograd carries them without a per-step loop. The reference's
+    ``lax.associative_scan`` composes in another tree; the results agree
+    within float32 rounding."""
+    b = torch.cat([b[:, :1] + torch.exp(log_a[:, :1]) * h0[:, None],
+                   b[:, 1:]], dim=1)
+    la, s = log_a, log_a.shape[1]
+    d = 1
+    while d < s:
+        # combine(left = t - d, right = t) for every t >= d
+        b = torch.cat([b[:, :d], torch.exp(la[:, d:]) * b[:, :-d]
+                       + b[:, d:]], dim=1)
+        if 2 * d < s:
+            la = torch.cat([la[:, :d], la[:, :-d] + la[:, d:]], dim=1)
+        d *= 2
+    return b, b[:, -1]
+
+
+def linear_scan_chunked(log_a, b, h0, chunk: int = 1024):
+    """``linear_scan`` chunk by chunk, the state carried between chunks:
+    the scan's working set is O(chunk x W) per level instead of
+    O(S x W). The last chunk may be shorter (the reference pads it with
+    identity steps to keep ``lax.scan``'s shapes equal)."""
+    h = h0.float()
+    outs = []
+    for c in range(0, log_a.shape[1], chunk):
+        h_all, h = linear_scan(log_a[:, c:c + chunk], b[:, c:c + chunk], h)
+        outs.append(h_all)
+    return torch.cat(outs, dim=1), h
+
+
 def rglru_block(params, x, cfg: ArchConfig,
                 state: Optional[RglruState] = None, *,
                 use_kernel: bool = False):
     """Full-sequence recurrent block. x: (B, S, D) -> (y, new_state)."""
-    if cfg.recurrent.scan_impl != "assoc":
-        raise NotImplementedError(
-            f"scan_impl {cfg.recurrent.scan_impl!r} is not ported")
+    if cfg.recurrent.scan_impl == "chunked_block" and state is None:
+        return _rglru_block_chunked(params, x, cfg,
+                                    chunk=max(cfg.recurrent.chunk, 256))
     u = x @ params["w_in_rnn"]
     gate = _gelu(x @ params["w_in_gate"])
     conv_tail = state.conv if state is not None else None
@@ -103,10 +141,49 @@ def rglru_block(params, x, cfg: ArchConfig,
                          device=x.device)
     if use_kernel:
         h_all, h_last = scan_kernel.rglru_scan(log_a, x_in, h0)
+    elif cfg.recurrent.scan_impl == "chunked":
+        h_all, h_last = linear_scan_chunked(
+            log_a, x_in, h0, chunk=max(cfg.recurrent.chunk, 256))
     else:
-        h_all, h_last = kref.rglru_scan_ref(log_a, x_in, h0)
+        h_all, h_last = linear_scan(log_a, x_in, h0)
     y = (h_all.to(x.dtype) * gate) @ params["w_out"]
     return y, RglruState(h_last, new_tail)
+
+
+def _rglru_block_chunked(params, x, cfg: ArchConfig, chunk: int):
+    """The whole block chunk by chunk along time (conv, gates, scan and
+    output projection), the (h, conv tail) carry passed between chunks,
+    so the fp32 gate and scan intermediates exist for one chunk at a
+    time: O(B x chunk x W) instead of O(B x S x W)."""
+    b, s, d = x.shape
+    w = cfg.recurrent.lru_width or d
+    cw = cfg.recurrent.conv_width
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    # Padded positions must be identity updates (log_a = 0, input = 0) or
+    # the carried state would evolve through the padding.
+    valid = (torch.arange(s + pad, device=x.device) < s)[None, :, None]
+    h = torch.zeros((b, w), dtype=torch.float32, device=x.device)
+    tail = x.new_zeros((b, cw - 1, w))
+    ys = []
+    for c in range(0, s + pad, chunk):
+        x_c, valid_c = x[:, c:c + chunk], valid[:, c:c + chunk]
+        u = x_c @ params["w_in_rnn"]
+        gate = _gelu(x_c @ params["w_in_gate"])
+        u, tail = _causal_conv(u, params["conv_w"], params["conv_b"], tail)
+        log_a, x_in = _gates(params, u)
+        log_a = torch.where(valid_c, log_a, 0.0)
+        x_in = torch.where(valid_c, x_in, 0.0)
+        h_all, h = linear_scan(log_a, x_in, h)
+        ys.append((h_all.to(x_c.dtype) * gate) @ params["w_out"])
+    y = torch.cat(ys, dim=1)[:, :s]
+    # Conv tail for decode continuation: the last cw-1 REAL inputs (the
+    # in-loop tail ends on padded positions).
+    tail = x[:, max(0, s - (cw - 1)):s] @ params["w_in_rnn"]
+    if tail.shape[1] < cw - 1:
+        tail = F.pad(tail, (0, 0, cw - 1 - tail.shape[1], 0))
+    return y, RglruState(h, tail.to(x.dtype))
 
 
 def rglru_block_decode(params, x, cfg: ArchConfig, state: RglruState):

@@ -6,9 +6,13 @@ them with ``lax.scan``; eager PyTorch needs neither, so the port keeps a
 flat ``nn.ModuleList`` in layer order. ``compute_segments`` stays for the
 weight converter, which unstacks the reference's segments into it.
 
-Entry points: ``forward_prefill`` (last-token logits + caches) and
-``forward_decode`` (one-token step); caches are a list with one entry per
-layer (``KVCache``, ``RwkvState`` or ``RglruState``).
+Entry points: ``forward_train`` (loss), ``forward_prefill`` (last-token
+logits + caches) and ``forward_decode`` (one-token step); caches are a
+list with one entry per layer (``KVCache``, ``RwkvState`` or
+``RglruState``). Under ``cfg.remat == "block"`` training runs each
+repeat of a segment's unit (the reference's scan body) under
+``torch.utils.checkpoint``, so only the units' inputs stay alive for the
+backward pass and each unit's activations are recomputed.
 
 Block kinds:
   attn    — RMSNorm -> GQA attention -> RMSNorm -> SwiGLU
@@ -17,7 +21,6 @@ Block kinds:
   dense0  — 'attn' with the MoE config's dense_d_ff (DeepSeekMoE layer 0)
   rwkv    — RWKV-6 time-mix -> channel-mix (attention-free)
   rec     — RG-LRU recurrent block -> SwiGLU
-``forward_train`` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
@@ -172,12 +176,18 @@ def param_count(model: Model) -> int:
 
 def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
                  mode: str, cache=None, cache_len: int = 0, position=None):
-    """Returns (x, new_cache)."""
+    """Returns (x, aux, new_cache); ``aux`` is the MoE load-balance loss
+    (a float32 scalar) or None, ``new_cache`` None in ``mode="train"``."""
     kind = p.kind
+    aux = None
     window = cfg.window if kind == "local" else 0
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in _ATTENTION_KINDS:
-        if mode == "prefill":
+        new_cache = None
+        if mode == "train":
+            a = attn_mod.attention(p["attn"], h, cfg, positions,
+                                   window=window, impl=impl)
+        elif mode == "prefill":
             a, new_cache = attn_mod.attention_prefill(
                 p["attn"], h, cfg, positions, cache_len=cache_len,
                 window=window, impl=impl)
@@ -187,18 +197,18 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
         x = x + a
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if kind == "moe":
-            f, _ = moe_mod.moe_layer(p["ffn"], h2, cfg,
-                                     use_kernel=(impl == "flash_moe"))
+            f, aux = moe_mod.moe_layer(p["ffn"], h2, cfg,
+                                       use_kernel=(impl == "flash_moe"))
         else:
             f = mlp_mod.mlp(p["ffn"], h2)
-        return x + f, new_cache
+        return x + f, aux, new_cache
     if kind == "rwkv":
         if mode == "decode":
             a, new_cache = rwkv_mod.rwkv_time_mix_decode(p["tmix"], h, cfg,
                                                          cache)
         else:
-            # Prefill starts from zero token-shift and WKV state, as in
-            # the reference.
+            # Train and prefill start from zero token-shift and WKV
+            # state, as in the reference.
             a, new_cache = rwkv_mod.rwkv_time_mix(
                 p["tmix"], h, cfg, None, use_kernel=(impl == "flash"))
         x = x + a
@@ -206,17 +216,18 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
         x_prev_c = new_cache.x_prev_c if mode == "decode" \
             else x.new_zeros((x.shape[0], x.shape[-1]))
         c = rwkv_mod.rwkv_channel_mix(p["cmix"], h2, x_prev_c)
-        new_cache = rwkv_mod.RwkvState(new_cache.wkv, new_cache.x_prev_t,
-                                       h2[:, -1])
-        return x + c, new_cache
-    if mode == "prefill":
+        new_cache = None if mode == "train" else rwkv_mod.RwkvState(
+            new_cache.wkv, new_cache.x_prev_t, h2[:, -1])
+        return x + c, aux, new_cache
+    if mode == "decode":
+        a, new_cache = rglru_mod.rglru_block_decode(p["rgl"], h, cfg, cache)
+    else:
         a, new_cache = rglru_mod.rglru_block(
             p["rgl"], h, cfg, None, use_kernel=(impl == "flash"))
-    else:
-        a, new_cache = rglru_mod.rglru_block_decode(p["rgl"], h, cfg, cache)
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_mod.mlp(p["ffn"], h2), new_cache
+    return x + mlp_mod.mlp(p["ffn"], h2), aux, \
+        None if mode == "train" else new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -282,14 +293,56 @@ def _lm_head(model: Model, cfg: ArchConfig, x):
     return (x @ w).float()
 
 
+def _train_unit(layers, cfg: ArchConfig, impl: str, x, aux, positions):
+    """One repeat of a segment's unit in ``mode="train"``: (x, aux)."""
+    for layer in layers:
+        x, a, _ = _apply_layer(layer, x, cfg, positions, impl=impl,
+                               mode="train")
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def forward_train(model: Model, cfg: ArchConfig, batch: dict, *,
+                  impl: str = "reference"):
+    """Returns (loss, {"nll", "aux"}). batch: tokens|embeds, labels,
+    [mask], [mrope_positions]. The loss is the masked mean of
+    logsumexp - gold logit, plus ``router_aux_weight`` times the layers'
+    summed MoE load-balance losses, as in the reference."""
+    x, positions = _embed_inputs(model, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    i = 0
+    for unit, repeats in compute_segments(cfg):
+        for _ in range(repeats):
+            layers = list(model.layers[i:i + len(unit)])
+            i += len(unit)
+            if cfg.remat != "none":
+                x, aux = checkpoint(_train_unit, layers, cfg, impl, x, aux,
+                                    positions, use_reentrant=False)
+            else:
+                x, aux = _train_unit(layers, cfg, impl, x, aux, positions)
+    logits = _lm_head(model, cfg, x)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    loss = torch.sum(nll * mask) / torch.sum(mask).clamp_min(1.0)
+    if cfg.moe:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    return loss, {"nll": loss, "aux": aux}
+
+
 def forward_prefill(model: Model, cfg: ArchConfig, batch: dict,
                     cache_len: int, *, impl: str = "reference"):
     """Returns (last_token_logits (B, V) float32, caches)."""
     x, positions = _embed_inputs(model, cfg, batch)
     caches = []
     for layer in model.layers:
-        x, c = _apply_layer(layer, x, cfg, positions, impl=impl,
-                            mode="prefill", cache_len=cache_len)
+        x, _, c = _apply_layer(layer, x, cfg, positions, impl=impl,
+                               mode="prefill", cache_len=cache_len)
         caches.append(c)
     logits = _lm_head(model, cfg, x[:, -1:])
     return logits[:, 0], caches
@@ -302,8 +355,8 @@ def forward_decode(model: Model, cfg: ArchConfig, tokens, caches,
     x = model["embed"][tokens].to(cfg.activation_dtype)
     new_caches = []
     for layer, c in zip(model.layers, caches):
-        x, c = _apply_layer(layer, x, cfg, None, impl="reference",
-                            mode="decode", cache=c, position=position)
+        x, _, c = _apply_layer(layer, x, cfg, None, impl="reference",
+                               mode="decode", cache=c, position=position)
         new_caches.append(c)
     logits = _lm_head(model, cfg, x)
     return logits[:, 0], new_caches
