@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the query engine, LLM
-serving and training.
+serving, training and distribution (4 ranks on the one card).
 
     python3 chip_smoke.py
 
@@ -111,6 +111,42 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    only; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts): a run
    preempted at step 3 and resumed from step 2 must end with a
    checkpoint byte-equal to an uninterrupted run's.
+11. distributed — 4 ranks on the one card (``launch.mesh.spawn``,
+   backend gloo; the collectives' payloads through device mailboxes,
+   ``transport="cuda_ipc"``, as gloo moves CUDA tensors at about 0.4
+   GB/s), mesh (data 2, model 2), after the parent built the kernels.
+   (d1) One ``moe`` layer of DeepSeekMoE-16B at full width, bf16, on the
+   expert-parallel path with the grouped matmul: the all-to-all path at x
+   (4, 4,096, 2,048) and the psum path at x (4, 1, 2,048), default
+   capacity, against the single-device layer applied to each shard's
+   tokens in turn with the kernel off (rank 0), within 2^-6 of the size
+   of each output's summed terms; every ``gmm`` launch on the
+   tensor-core route; the kernel at the EP shape against its plain
+   version, timed. (d2) Two sharded train steps of DeepSeekMoE-16B (its
+   dense layer and one ``moe`` layer, capacity factor 16, 8 x 256
+   tokens) and of RecurrentGemma-2B's (rec, rec, local) unit (8 x 512
+   tokens) against the one-process step on the same weights and batch
+   (DeepSeekMoE's with the EP path's per-shard routing): losses within
+   2^-7 of the mean largest |logit|, step 1's gradient cosines >= 0.99
+   (step 2's logged: its weights already differ by rounding), every
+   update of three or four leaves within ``check_updates``' allowances;
+   each rank's parameter bytes those the rules give; DeepSeekMoE's
+   checkpoint saved from (2, 2) restored onto one device and onto a
+   (4, 1) mesh, both saved again byte-equal. (d3) DeepSeekMoE-16B served
+   on the mesh at full width, its depth cut only as far as the reckoned
+   peak of the 4 ranks needs to leave 10% of the card free: 4 requests of
+   1,024-4,096 tokens in one batch, 16 new tokens, identical
+   completions on every rank, ``cost_report`` with 4 chips; then 2
+   ``moe`` layers, 1,024-token prompts, capacity 16: the first-token
+   logits within ``LOGIT_TOL`` of the one-process engine's on the same
+   weights and the same top-k expert choices (where near-ties flipped,
+   the one-process prefill replays the mesh's), and the same first token
+   wherever the top-1/top-2 gap exceeds twice the difference. (d4) The
+   same ranks as (pod 2, data 2): ``compressed_psum`` over ``"pod"`` of
+   gradient leaves of the RecurrentGemma unit's shapes, the reference
+   test's checks (one-step error < 0.02, a nonzero error state, the
+   9-step mean closer), 1 byte an element on the wire. (d5) One NCCL
+   rank on the card: an EP layer call and a ``compressed_psum``.
 
 Ends with the card's name and power limit, a ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``. Any mismatch or exception exits
@@ -137,7 +173,8 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 RTOL = 1e-6
 QUERIES = ("q1", "q6", "q12", "dup_key_join")
-PHASES = ("queries", "query_serving", "adaptive", "serve", "train")
+PHASES = ("queries", "query_serving", "adaptive", "serve", "train",
+          "distributed")
 # The multi-query serving phase: each query twice, two tenants, submit
 # times this far apart (model time), on a fixed worker budget.
 SERVING_QUERIES = QUERIES + QUERIES
@@ -213,6 +250,36 @@ TRAIN_LR = 1e-3
 GRAD_COSINE = 0.99    # the step's gradients against float32's, per leaf
 RESUME_LAYERS, RESUME_SEQ, RESUME_STEPS = 3, 512, 4
 RESUME_EVERY, RESUME_PREEMPT_AT = 2, 3
+# The distributed phase: 4 ranks on the one card, (data 2, model 2).
+DIST_WORLD, DIST_MESH, DIST_ARCH = 4, (2, 2), "deepseek-moe-16b"
+DIST_TIMEOUT = 900
+# gloo moves a CUDA tensor at about 0.3 GB/s a rank (4 ranks on an H100
+# host, torch 2.11; scripts/collective_bandwidth.py): the ranks'
+# collectives go through device mailboxes.
+DIST_TRANSPORT = "cuda_ipc"
+EP_BATCH, EP_SEQ, EP_SEED = 4, 4096, 11
+# (d1): the EP layer (grouped matmul on the card) against the oracle
+# (einsum, kernel off) on the same tokens: each of the three products
+# rounds its bf16 result once on each side, and an input rounded
+# differently moves the next product by its terms' size times that
+# rounding; so 2^-6 (two bf16 roundings, 2^-7 each) of the size of the
+# summed terms of each output (the combine's gate-weighted |h| @
+# |w_down|, and the shared experts'), plus 2^-24 for outputs of no terms.
+EP_TOL, EP_ABS = 2.0 ** -6, 2.0 ** -24
+# (d2): layers and tokens a sequence; 8 sequences, 2 microbatches.
+DIST_TRAIN = {"deepseek-moe-16b": (2, 256), "recurrentgemma-2b": (3, 512)}
+DIST_TRAIN_BATCH, DIST_TRAIN_MICRO, DIST_TRAIN_STEPS = 8, 2, 2
+# The model whose checkpoint is restored onto one device and onto (4, 1):
+# its experts change their layout over "model" (cut: the RecurrentGemma
+# unit's, 9.4 GB, another minute of the phase).
+DIST_CKPT_ARCH = "deepseek-moe-16b"
+# (d3)
+DIST_SERVE_REQUESTS, DIST_SERVE_NEW = 4, 16
+DIST_PARITY_MOE_LAYERS, DIST_PARITY_PROMPT = 2, 1024
+# (d4): leaves above this many elements (the unit's 256000 x 2560
+# embedding: its float32 partial and temporaries take about 20 GB a
+# rank) are left out.
+DIST_COMPRESS_MAX_ELEMENTS = 100_000_000
 
 
 def log(phase: str, **fields) -> None:
@@ -1978,8 +2045,8 @@ def float32_step_reference(trainer, cfg, leaves):
     losses, logit_max = [], []
 
     def record_max(f):
-        def lm_head(model, cfg, x):
-            logits = f(model, cfg, x)
+        def lm_head(model, cfg, x, *rest):
+            logits = f(model, cfg, x, *rest)
             with torch.no_grad():
                 logit_max.append(float(torch.maximum(
                     logits.amax(-1), -logits.amin(-1)).mean()))
@@ -2419,6 +2486,1056 @@ def run_resume(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Distribution: 4 ranks on the one card
+# ---------------------------------------------------------------------------
+
+def _dist_setup():
+    """What every rank of the distributed phase sets up first."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.distributed.get_rank()
+
+
+def _gmm_counts() -> dict:
+    from repro_torch.kernels import moe_gmm as mg
+    return {"gmm": mg.GMM_LAUNCHES, "gmm_tc": mg.GMM_TC_LAUNCHES}
+
+
+def _reset_gmm() -> None:
+    from repro_torch.kernels import moe_gmm as mg
+    mg.GMM_LAUNCHES = mg.GMM_TC_LAUNCHES = 0
+
+
+def _host(t):
+    return t.detach().cpu()
+
+
+def dist_moe_params(cfg, mesh, seed: int, keep_whole: bool):
+    """One ``moe`` layer's weights in bf16 from ``seed``, distributed by
+    the rules; the whole tree too where ``keep_whole``."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import split_tree
+    from repro_torch.launch import mesh as mesh_mod
+    gen = torch.Generator(device=mesh_mod.local_device()).manual_seed(seed)
+    values, axes = split_tree(moe_mod.init_moe(gen, cfg))
+    values = tfm._cast(values, torch.bfloat16)
+    sharded = tfm.distribute(values, axes, mesh)
+    return sharded, (values if keep_whole else None)
+
+
+def ep_oracle(whole, x, cfg, dp: int, tp: int):
+    """(d1)'s oracle on one process: the single-device layer on each
+    shard's tokens in turn, kernel off (the per-shard capacity of EP, so
+    the same drops); the size of the summed terms of each output (the
+    combine's gate-weighted |h| @ |w_down| and the shared experts'); the
+    drops per shard; the aux loss (the shards' mean)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    mo = cfg.moe
+    wg, wu, wd = whole["w_gate"], whole["w_up"], whole["w_down"]
+    b, s, d = x.shape
+    ys, sizes, drops, auxes = [], [], [], []
+    for xs in x.split(b // dp, 0):
+        parts = xs.split(s // tp, 1) if s % tp == 0 else [xs]
+        row_y, row_size = [], []
+        for xm in parts:
+            bl, sl, _ = xm.shape
+            x2d = xm.reshape(bl * sl, d)
+            gates, idx, aux = moe_mod._route(whole, x2d, mo, mo.norm_topk)
+            cap = moe_mod._capacity(bl * sl, mo)
+            xb, slot, keep = moe_mod._dispatch(x2d, gates, idx, cap,
+                                               mo.num_experts)
+            gate = torch.einsum("ecd,edf->ecf", xb, wg)
+            up = torch.einsum("ecd,edf->ecf", xb, wu)
+            h = gate * torch.sigmoid(gate) * up
+            yb = torch.einsum("ecf,efd->ecd", h, wd)
+            terms = torch.einsum("ecf,efd->ecd", h.float().abs(),
+                                 wd.float().abs())
+            row_y.append(moe_mod._combine(yb, slot, keep, gates, x.dtype)
+                         .reshape(bl, sl, d))
+            row_size.append(moe_mod._combine(terms, slot, keep, gates,
+                                             torch.float32)
+                            .reshape(bl, sl, d))
+            drops.append(int((~keep).sum()))
+            auxes += [float(aux)] * (1 if s % tp == 0 else tp)
+            del gate, up, h, yb, terms, xb
+        ys.append(torch.cat(row_y, 1))
+        sizes.append(torch.cat(row_size, 1))
+    y, size = torch.cat(ys, 0), torch.cat(sizes, 0)
+    sp = whole["shared"]
+    gate = torch.einsum("bsd,df->bsf", x, sp["w_gate"])
+    up = torch.einsum("bsd,df->bsf", x, sp["w_up"])
+    h = gate * torch.sigmoid(gate) * up
+    y = y + torch.einsum("bsf,fd->bsd", h, sp["w_down"])
+    size = size + torch.einsum("bsf,fd->bsd", h.float().abs(),
+                               sp["w_down"].float().abs())
+    return y, size, drops, sum(auxes) / len(auxes)
+
+
+def dist_ep(mesh, rank: int) -> dict:
+    """(d1): one ``moe`` layer of DeepSeekMoE-16B at full width, bf16, on
+    the all-to-all path (x (4, 4096, 2048)) and the psum path (x (4, 1,
+    2048)), ``use_kernel=True``, the default capacity factor; rank 0 holds
+    the gathered output to the oracle and checks the grouped matmul at
+    the EP shape."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core import shard_map as sm
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import moe as moe_mod
+    cfg = ARCHS[DIST_ARCH]
+    dev = mesh_mod.local_device()
+    dp, tp = sm.dp_size(mesh), sm.axis_size(mesh, "model")
+    params, whole = dist_moe_params(cfg, mesh, EP_SEED, rank == 0)
+    out = {"local_param_bytes": sum(
+        t.to_local().numel() * t.element_size() for t in
+        _dtensors(params))}
+    for path, seq in (("all_to_all", EP_SEQ), ("psum", 1)):
+        gen = torch.Generator(device=dev).manual_seed(EP_SEED + seq)
+        x = torch.randn((EP_BATCH, seq, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        xl = sm.local_shard(x, (sm.dp_axes(mesh), None, None), mesh)
+        with torch.inference_mode():
+            moe_mod.moe_layer(params, xl, cfg, mesh=mesh, use_kernel=True)
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            _reset_gmm()                       # the path: counts at 0
+            t0 = time.perf_counter()
+            y, aux = moe_mod.moe_layer(params, xl, cfg, mesh=mesh,
+                                       use_kernel=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = _gmm_counts()           # ... read just after
+            sm.reset_comm()
+            with sm.timing():
+                moe_mod.moe_layer(params, xl, cfg, mesh=mesh,
+                                  use_kernel=True)
+            comm = {k: dict(v) for k, v in sm.COMM.items()}
+            y_all = sm.gather(y, 0, mesh, "data")
+        rec = {"seconds": seconds, "launches": launches, "comm": comm,
+               "aux": float(aux)}
+        if rank == 0:
+            with torch.inference_mode():
+                want, size, drops, aux_want = ep_oracle(whole, x, cfg, dp,
+                                                        tp)
+            err = (y_all.float() - want.float()).abs()
+            ratio = err / (EP_TOL * size + EP_ABS)
+            rec.update(max_abs_err=float(err.max()),
+                       worst_over_bound=float(ratio.max()),
+                       finite=bool(torch.isfinite(y_all).all()),
+                       drops_per_shard=drops, aux_oracle=aux_want,
+                       shape=list(y_all.shape))
+            del want, size, err, ratio
+        out[path] = rec
+        if path == "all_to_all" and rank == 0:
+            out["gmm_ep"] = ep_gmm_check(params, xl, cfg, mesh)
+        elif path == "all_to_all":
+            ep_gmm_check(params, xl, cfg, mesh)
+        del x, xl, y, y_all
+    del params, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dtensors(tree):
+    from torch.distributed.tensor import DTensor
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _dtensors(v)
+        elif isinstance(v, DTensor):
+            yield v
+
+
+def ep_gmm_check(params, xl, cfg, mesh):
+    """The grouped matmul at the EP shape (E/tp experts, tp*C rows): its
+    first call of the all-to-all path recorded, then the kernel against
+    its plain version on those inputs (rank 0 times it; the others only
+    take part in the recorded layer call)."""
+    import torch
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.models import moe as moe_mod
+    seen = []
+
+    def record(f):
+        def gmm(x, w):
+            if not seen:
+                seen.append((x.clone(), w.clone()))
+            return f(x, w)
+        return gmm
+    with replaced(mg, "gmm", record), torch.inference_mode():
+        moe_mod.moe_layer(params, xl, cfg, mesh=mesh, use_kernel=True)
+    torch.cuda.synchronize()
+    if torch.distributed.get_rank() != 0:
+        torch.distributed.barrier()
+        return None
+    x, w = seen[0]
+    e, c, d = x.shape
+    f = w.shape[2]
+    tc0 = mg.GMM_TC_LAUNCHES
+    got = mg.gmm(x, w)
+    if mg.GMM_TC_LAUNCHES != tc0 + 1:
+        raise AssertionError("gmm at the EP shape did not take the "
+                             "tensor-core route")
+    want = mg.gmm_plain(x, w)
+    torch.cuda.synchronize()
+    err = within(got, want, BF16_TOL)
+    flops = 2.0 * e * c * d * f
+    nbytes = (x.numel() + w.numel() + got.numel()) * x.element_size()
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, bound_ms(nbytes)
+    row = {"shape": [e, c, d, f], "max_abs_err": err,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           **kernel_times(lambda: mg.gmm(x, w), lambda: mg.gmm_plain(x, w),
+                          lambda: torch.bmm(x, w)),
+           "route": mg._route(x.dtype, d, f),
+           "empty_slots": int((x.abs().amax(dim=2) == 0).sum())}
+    row["tflops_per_s"] = flops / row["ms"] / 1e9
+    torch.distributed.barrier()
+    return row
+
+
+def _train_cfg(arch: str):
+    import dataclasses
+    from repro_torch.configs.registry import ARCHS
+    layers, _ = DIST_TRAIN[arch]
+    cfg = dataclasses.replace(ARCHS[arch], num_layers=layers,
+                              microbatches=DIST_TRAIN_MICRO)
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+    return cfg
+
+
+def _train_opt():
+    from repro_torch.train import optimizer as opt_mod
+    return opt_mod.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                               total_steps=DIST_TRAIN_STEPS)
+
+
+def _train_batch(cfg, step: int, device):
+    import numpy as np
+    import torch
+    _, seq = DIST_TRAIN[cfg.name]
+    rng = np.random.default_rng(1000 + step)
+    toks = rng.integers(0, cfg.vocab_size, (DIST_TRAIN_BATCH, seq + 1))
+    toks = torch.from_numpy(toks.astype(np.int32)).to(device)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _train_leaves(cfg) -> tuple:
+    """The leaves whose updates are checked, and those whose gradients
+    alone are (the routed experts' 184M-element ``w_gate``: an update
+    check in float64 on the host would take minutes)."""
+    if cfg.moe:
+        return (("top.ln_f", "layers.1.ffn.w_router", "layers.1.attn.wq"),
+                ("layers.1.ffn.w_gate",))
+    return ("top.ln_f", "layers.0.rgl.gate_a", "layers.2.attn.wq"), ()
+
+
+def _update_recorder(records, leaves, whole):
+    """Wraps ``apply_updates``: each step's (p, g, m, v) before and (p,
+    mu, nu) after of the update leaves, and the gradients of the
+    gradient leaves, whole on the host (``whole`` gathers a sharded leaf:
+    every rank calls it)."""
+    updated, grad_only = leaves
+
+    def wrap(f):
+        def apply_updates(params, grads, state, cfg):
+            named = dict(params.named_parameters())
+            before = {n: tuple(_host(whole(t)) for t in (
+                named[n], grads[n], state.mu[n], state.nu[n]))
+                for n in updated}
+            extra = {n: _host(whole(grads[n])) for n in grad_only}
+            out = f(params, grads, state, cfg)
+            records.append({
+                "step": int(out[1].step), "grad_norm": float(
+                    out[2]["grad_norm"]), "before": before, "grads": extra,
+                "after": {n: tuple(_host(whole(t)) for t in (
+                    named[n], out[1].mu[n], out[1].nu[n]))
+                    for n in updated}})
+            return out
+        return apply_updates
+    return wrap
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core import shard_map as sm
+    if isinstance(t, DTensor):
+        return sm.gather_full(t.to_local().detach(), sm.spec_of(t),
+                              t.device_mesh)
+    return t.detach()
+
+
+def train_on(cfg, mesh, device, leaves, moe_layer=None):
+    """DIST_TRAIN_STEPS steps of ``make_train_step`` from the seeded
+    weights (on ``mesh``, or one device): (losses, grad norms, step
+    seconds, update records, model, opt state)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt_mod
+    gen = torch.Generator(device=device).manual_seed(TRAIN_SEED)
+    model = tfm.init_model(cfg, gen, dtype=cfg.activation_dtype, mesh=mesh)
+    opt_cfg = _train_opt()
+    opt = opt_mod.init_opt_state(model, opt_cfg)
+    step = Timed(steps.make_train_step(cfg, opt_cfg, mesh=mesh))
+    records, metrics = [], []
+    with replaced(opt_mod, "apply_updates",
+                  _update_recorder(records, leaves, _whole)):
+        if moe_layer is not None:
+            with replaced(moe_mod, "moe_layer", lambda f: moe_layer):
+                for i in range(DIST_TRAIN_STEPS):
+                    opt, m = step(model, opt, _train_batch(cfg, i, device))
+                    metrics.append((float(m["loss"]),
+                                    float(m["grad_norm"])))
+        else:
+            for i in range(DIST_TRAIN_STEPS):
+                opt, m = step(model, opt, _train_batch(cfg, i, device))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, step.seconds, records, model, opt
+
+
+def _ckpt_objects(store) -> dict:
+    return {k: bytes(store.get(k)) for k in store.list("")}
+
+
+def dist_train(mesh, rank: int) -> dict:
+    """(d2) on the ranks: each model's two sharded steps, then its
+    checkpoint saved from (2, 2) and restored onto one device (rank 0)
+    and onto a (4, 1) mesh, each saved again for a byte comparison."""
+    import torch
+    from repro_torch.checkpoint import object_store_ckpt as ckpt
+    from repro_torch.core import shard_map as sm
+    from repro_torch.core.storage_service import ObjectStore
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt_mod
+    dev = mesh_mod.local_device()
+    m41 = mesh_mod.make_local_mesh(4, 1, device_type=DEVICE)
+    out = {}
+    for arch in DIST_TRAIN:
+        t_arch = time.perf_counter()
+        cfg = _train_cfg(arch)
+        leaves = _train_leaves(cfg)
+        sm.reset_comm()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, seconds, records, model, opt = train_on(cfg, mesh, dev,
+                                                         leaves)
+        comm = {k: dict(v) for k, v in sm.COMM.items()}
+        local = sum(p.to_local().numel() * p.element_size()
+                    for p in model.parameters())
+        shapes, placements = steps.model_shardings(cfg, mesh)
+        rules = 0
+        for name, shape in shapes.items():
+            n = 1
+            for s_ in shape:
+                n *= s_
+            for size, pl in zip(mesh.shape, placements[name]):
+                n //= size if pl.is_shard() else 1
+            rules += n * cfg.activation_dtype.itemsize
+        rec = {"metrics": metrics, "seconds": seconds, "comm": comm,
+               "local_param_bytes": local, "rules_param_bytes": rules,
+               "peak": torch.cuda.max_memory_allocated()}
+        if arch != DIST_CKPT_ARCH:
+            del model, opt
+            torch.cuda.empty_cache()
+            if rank == 0:
+                rec["records"] = records
+            rec["phase_s"] = time.perf_counter() - t_arch
+            out[arch] = rec
+            continue
+        store = ObjectStore()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(store, "ckpt", DIST_TRAIN_STEPS, model)
+        ckpt.save_checkpoint(store, "ckpt-opt", DIST_TRAIN_STEPS, opt)
+        rec["save_s"] = time.perf_counter() - t0
+        del model, opt
+        torch.cuda.empty_cache()
+        # Onto a (4, 1) mesh: restored and saved again.
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 1)
+        like = tfm.init_model(cfg, gen, dtype=cfg.activation_dtype, mesh=m41)
+        like_opt = opt_mod.init_opt_state(like, _train_opt())
+        t0 = time.perf_counter()
+        m_r, _ = ckpt.restore_checkpoint(store, "ckpt", like, mesh=m41)
+        o_r, _ = ckpt.restore_checkpoint(store, "ckpt-opt", like_opt,
+                                         mesh=m41)
+        rec["restore_41_s"] = time.perf_counter() - t0
+        again = ObjectStore()
+        ckpt.save_checkpoint(again, "ckpt", DIST_TRAIN_STEPS, m_r)
+        ckpt.save_checkpoint(again, "ckpt-opt", DIST_TRAIN_STEPS, o_r)
+        del like, like_opt, m_r, o_r
+        torch.cuda.empty_cache()
+        if rank == 0:
+            saved = _ckpt_objects(store)
+            rec["restore_41_equal"] = _ckpt_objects(again) == saved
+            # Onto one device (this rank alone: no collective).
+            gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 2)
+            like = tfm.init_model(cfg, gen, dtype=cfg.activation_dtype)
+            like_opt = opt_mod.init_opt_state(like, _train_opt())
+            t0 = time.perf_counter()
+            m1, _ = ckpt.restore_checkpoint(store, "ckpt", like)
+            o1, _ = ckpt.restore_checkpoint(store, "ckpt-opt", like_opt)
+            rec["restore_one_s"] = time.perf_counter() - t0
+            one = ObjectStore()
+            ckpt.save_checkpoint(one, "ckpt", DIST_TRAIN_STEPS, m1)
+            ckpt.save_checkpoint(one, "ckpt-opt", DIST_TRAIN_STEPS, o1)
+            rec["restore_one_equal"] = _ckpt_objects(one) == saved
+            rec["checkpoint_bytes"] = sum(len(v) for v in saved.values())
+            rec["records"] = records
+            del like, like_opt, m1, o1, one, saved
+        del store, again, records
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+        rec["phase_s"] = time.perf_counter() - t_arch
+        out[arch] = rec
+    return out
+
+
+def dist_serve(mesh, rank: int, serve_layers: int) -> dict:
+    """(d3) on the ranks: DeepSeekMoE-16B on the mesh at full width and
+    depth (the reckoned cut, if any), 4 requests of 1,024-4,096 tokens in
+    one batch, 16 new tokens; then 2 ``moe`` layers, 1,024-token prompts,
+    capacity 16: the first prefill's logits (all rows) and the top-k
+    expert choices of each token for the parent's comparison."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core import shard_map as sm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import ServingEngine
+    out = {}
+    cfg = dataclasses.replace(ARCHS[DIST_ARCH], num_layers=serve_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, DIST_SERVE_REQUESTS, SERVE_PROMPT,
+                        SERVE_PROMPT + DIST_SERVE_NEW, seed=SERVE_SEED,
+                        impl="flash_moe", mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    local = sum(p.to_local().numel() * p.element_size()
+                for p in eng.model.parameters())
+    reqs = dist_requests(cfg.vocab_size)
+    prefill, decode = Timed(eng.prefill), Timed(eng.decode)
+    eng.prefill, eng.decode = prefill, decode
+    torch.distributed.barrier()
+    _reset_gmm()                                  # the path: counts at 0
+    sm.reset_comm()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["full"] = {
+        "layers": cfg.num_layers, "init_s": init_s, "wall_s": wall,
+        "launches": _gmm_counts(),                # ... read just after
+        "prefill_s": prefill.seconds, "decode_s": decode.seconds,
+        "comm": {k: dict(v) for k, v in sm.COMM.items()},
+        "peak": torch.cuda.max_memory_allocated(),
+        "local_param_bytes": local,
+        "completions": [r.completion.tolist() for r in done],
+        "cost": eng.cost_report(wall, len(done))}
+    del eng, done
+    torch.cuda.empty_cache()
+
+    # Parity: 2 moe layers, 1,024-token prompts, capacity 16.
+    pcfg = parity_cfg()
+    eng = ServingEngine(pcfg, DIST_SERVE_REQUESTS, DIST_PARITY_PROMPT,
+                        DIST_PARITY_PROMPT + DIST_SERVE_NEW,
+                        seed=SERVE_SEED, impl="flash_moe", mesh=mesh)
+    reqs = parity_requests(pcfg.vocab_size)
+    toks = eng._batch_prompts(reqs)
+    choices = []
+
+    def record(f):
+        def route(params, x2d, mo, norm_topk):
+            gates, idx, aux = f(params, x2d, mo, norm_topk)
+            choices.append(_host(idx))
+            return gates, idx, aux
+        return route
+    with replaced(moe_mod, "_route", record):
+        logits, _ = eng.prefill(eng.model, {"tokens": toks})
+    with torch.inference_mode():
+        logits = sm.gather(logits, 0, mesh, "data")
+    done = eng.serve(reqs)
+    out["parity"] = {"logits": _host(logits.float()), "choices": choices,
+                     "completions": [r.completion.tolist() for r in done]}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_requests(vocab: int):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(SERVE_SEED)
+    lengths = rng.integers(SERVE_MIN_PROMPT, SERVE_PROMPT + 1,
+                           DIST_SERVE_REQUESTS)
+    return [Request(i, rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=DIST_SERVE_NEW)
+            for i, n in enumerate(lengths)]
+
+
+def parity_cfg():
+    import dataclasses
+    from repro_torch.configs.registry import ARCHS
+    cfg = ARCHS[DIST_ARCH]
+    return dataclasses.replace(
+        cfg, num_layers=1 + DIST_PARITY_MOE_LAYERS,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+
+
+def parity_requests(vocab: int):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(SERVE_SEED)
+    return [Request(i, rng.integers(0, vocab, DIST_PARITY_PROMPT)
+                    .astype(np.int32), max_new_tokens=DIST_SERVE_NEW)
+            for i in range(DIST_SERVE_REQUESTS)]
+
+
+def dist_compress(rank: int) -> dict:
+    """(d4): the same 4 ranks as (pod 2, data 2); gradient leaves of the
+    RecurrentGemma unit's shapes, one at a time, each pod's partial drawn
+    from its own seed: the reference test's checks and the int8 wire."""
+    import math
+    import torch
+    from repro_torch.core import shard_map as sm
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import grad_compression as gc
+    mesh = mesh_mod.make_local_mesh(2, 1, pod=2, device_type=DEVICE)
+    dev = mesh_mod.local_device()
+    pod = sm.axis_index(mesh, "pod")
+    shapes = tfm.param_shapes(_train_cfg("recurrentgemma-2b"))
+    skipped = {n: s for n, s in shapes.items()
+               if math.prod(s) > DIST_COMPRESS_MAX_ELEMENTS}
+    shapes = {n: s for n, s in shapes.items() if n not in skipped}
+    worst = {"rel": 0.0, "rel9_over_rel": 0.0}
+    wire = elems = 0
+    err_min = float("inf")
+    t0 = time.perf_counter()
+    for i, (name, shape) in enumerate(sorted(shapes.items())):
+        gen = torch.Generator(device=dev).manual_seed(7000 + 2 * i + pod)
+        local = torch.randn((1,) + tuple(shape), generator=gen, device=dev)
+        spec = ("pod",) + (None,) * len(shape)
+        g = {"g": sm.make_dtensor(local, spec, mesh, (2,) + tuple(shape))}
+        want = sm.all_reduce(local[0], mesh, "pod") / 2
+        e = {"g": sm.make_dtensor(torch.zeros_like(local), spec, mesh,
+                                  (2,) + tuple(shape))}
+        sm.reset_comm()
+        o, e = gc.compressed_psum(g, e, mesh, axis="pod")
+        elems += local[0].numel()
+        got = o["g"].to_local()
+        scale = float(want.abs().max())
+        rel = float((got - want).abs().max()) / scale
+        err_min = min(err_min, float(e["g"].to_local().abs().max()))
+        acc = got.clone()
+        for _ in range(8):
+            o, e = gc.compressed_psum(g, e, mesh, axis="pod")
+            acc += o["g"].to_local()
+        wire += sm.COMM["all_gather"]["bytes"]
+        rel9 = float((acc / 9 - want).abs().max()) / scale
+        worst["rel"] = max(worst["rel"], rel)
+        worst["rel9_over_rel"] = max(worst["rel9_over_rel"], rel9 / rel)
+        del local, g, e, o, got, acc, want
+    torch.cuda.synchronize()
+    return {"leaves": len(shapes), "skipped": skipped,
+            "elements": elems, "wire_bytes": wire,
+            "seconds": time.perf_counter() - t0, "error_state_min_max":
+            err_min, **worst}
+
+
+def dist_rank_main(serve_layers: int) -> dict:
+    """One rank of the distributed phase: (d1)-(d4) on the (2, 2) mesh
+    (and the (4, 1) and (2, 2) pod re-meshes of the same ranks);
+    ``serve_layers`` is (d3)'s reckoned depth."""
+    import torch
+    from repro_torch.launch import mesh as mesh_mod
+    rank = _dist_setup()
+    mesh = mesh_mod.make_local_mesh(*DIST_MESH, device_type=DEVICE)
+    out = {"device": str(mesh_mod.local_device()),
+           "device_name": torch.cuda.get_device_name(0)}
+    from repro_torch.core import shard_map as sm
+    out["mailbox"] = sm.MAILBOX_BYTES if sm.mailboxes_open() else 0
+    t0 = time.perf_counter()
+    out["ep"] = dist_ep(mesh, rank)
+    out["ep"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"] = dist_train(mesh, rank)
+    out["train_phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serve"] = dist_serve(mesh, rank, serve_layers)
+    out["serve_phase_s"] = time.perf_counter() - t0
+    out["compress"] = dist_compress(rank)
+    return out
+
+
+def nccl_rank_main() -> dict:
+    """(d5): one NCCL rank on the card, a (1, 1) mesh: one EP layer call
+    (the 1-rank axes make the port's collectives no-ops, so an all-reduce
+    on the world group exercises NCCL itself) and one compressed_psum."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core import shard_map as sm
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train import grad_compression as gc
+    _dist_setup()
+    mesh = mesh_mod.make_local_mesh(1, 1, device_type=DEVICE)
+    dev = mesh_mod.local_device()
+    cfg = ARCHS[DIST_ARCH]
+    params, whole = dist_moe_params(cfg, mesh, EP_SEED, True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    _reset_gmm()                              # the path: counts at 0
+    with torch.inference_mode():
+        y, _ = moe_mod.moe_layer(params, x, cfg, mesh=mesh, use_kernel=True)
+    launches = _gmm_counts()                  # ... read just after
+    with torch.inference_mode():
+        want, _ = moe_mod.moe_layer(whole, x, cfg, use_kernel=True)
+    pmesh = mesh_mod.make_local_mesh(1, 1, pod=1, device_type=DEVICE)
+    g = {"g": torch.randn((1, 64, 64), generator=gen, device=dev)}
+    o, e = gc.compressed_psum(g, {"g": torch.zeros_like(g["g"])}, pmesh)
+    rel = float((o["g"].to_local() - g["g"][0]).abs().max()
+                / g["g"].abs().max())
+    probe = torch.ones(4, device=dev)
+    torch.distributed.all_reduce(probe)
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    return {"backend": torch.distributed.get_backend(),
+            "device": str(dev), "launches": launches,
+            "ep_equal": bool(torch.equal(y, want)),
+            "compress_rel": rel, "all_reduce": probe.tolist()}
+
+
+def dist_plan(card: str) -> dict:
+    """(d3)'s depth, reckoned before the run: each rank's weights by the
+    rules, its largest gathered layer, its prefill's activations (three
+    float32 (B/dp, H, S, S) score tensors of the reference attention,
+    the KV caches, the MoE buffers, hidden states) and 1 GiB of CUDA
+    context and allocator slack, times the ranks, plus the parent's
+    context; ``moe`` layers are cut until the peak leaves 10% of the card
+    free."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import steps
+    from repro_torch.core.shard_map import MAILBOX_BYTES as MAILBOX
+    total = torch.cuda.get_device_properties(0).total_memory
+    cfg = ARCHS[DIST_ARCH]
+    data, model = DIST_MESH
+    dp, world = data, data * model
+
+    class _Mesh:
+        axis_names = ("data", "model")
+
+        class devices:
+            shape = DIST_MESH
+
+    def rank_bytes(c) -> dict:
+        shapes, placements = steps.model_shardings(c, _Mesh())
+        local = gathered_layer = 0
+        per_layer: dict = {}
+        for name, shape in shapes.items():
+            n = 1
+            for s_ in shape:
+                n *= s_
+            full = n * 2
+            for size, pl in zip(DIST_MESH, placements[name]):
+                n //= size if pl.is_shard() else 1
+            local += n * 2
+            if name.startswith("layers."):
+                key = name.split(".")[1]
+                expert = ".ffn.w_" in name and "shared" not in name \
+                    and "router" not in name and c.moe is not None
+                per_layer[key] = per_layer.get(key, 0) + (
+                    full // model if expert else full)
+        gathered_layer = max(per_layer.values())
+        bl, s = DIST_SERVE_REQUESTS // dp, SERVE_PROMPT
+        scores = 3 * bl * c.num_heads * s * s * 4
+        kv = 2 * bl * (s + DIST_SERVE_NEW) * c.num_kv_heads * c.head_dim \
+            * 2 * c.num_layers
+        cap = -(-c.moe.top_k * bl * (s // model) * c.moe.capacity_factor
+                // c.moe.num_experts)
+        moe_buf = 6 * c.moe.num_experts * int(cap) * c.d_model * 2
+        hidden = 10 * bl * s * c.d_model * 4
+        act = scores + kv + moe_buf + hidden
+        return {"weights": local, "gathered_layer": gathered_layer,
+                "activations": act,
+                "rank_peak": local + gathered_layer + act + 2 ** 30
+                + (MAILBOX if DIST_TRANSPORT else 0)}
+
+    layers = cfg.num_layers
+    while True:
+        c = dataclasses.replace(cfg, num_layers=layers)
+        est = rank_bytes(c)
+        peak = world * est["rank_peak"] + 2 ** 30
+        if peak <= 0.9 * total or layers <= 2:
+            break
+        layers -= 1
+    plan = {"serve_layers": layers, "cut_moe_layers": cfg.num_layers - layers,
+            "reckoned_peak_bytes": peak, "card_bytes": total,
+            "per_rank": est}
+    log("distributed_plan", card=card, mesh=list(DIST_MESH), ranks=world,
+        backend="gloo", **plan, published_layers=cfg.num_layers,
+        spare=1 - peak / total)
+    if peak > 0.9 * total:
+        raise AssertionError(f"distributed: {peak} bytes reckoned for "
+                             f"{world} ranks on a {total}-byte card")
+    return plan
+
+
+def _shard_choices(choices, world, model):
+    """The ranks' recorded top-k choices of each layer, in the global
+    token order (B, S, k): rank r = (data d, model m) routed rows of
+    batch shard d and sequence slice m."""
+    import torch
+    layers = len(choices[0])
+    out = []
+    for li in range(layers):
+        rows = []
+        for d in range(world // model):
+            parts = [choices[d * model + m][li] for m in range(model)]
+            rows.append(torch.cat([p.reshape(-1, DIST_PARITY_PROMPT // model,
+                                             p.shape[-1]) for p in parts],
+                                  1))
+        out.append(torch.cat(rows, 0))
+    return out
+
+
+def check_dist_ep(res, card) -> dict:
+    """(d1) in the parent: every rank's path times, launches, bytes; rank
+    0's comparison with the oracle."""
+    launches = {"gmm": 0, "gmm_tc": 0}
+    for path in ("all_to_all", "psum"):
+        r0 = res[0]["ep"][path]
+        a2a = [r["ep"][path]["comm"].get("all_to_all", {}) for r in res]
+        log("distributed_ep", card=card, path=path,
+            x_shape=[EP_BATCH, EP_SEQ if path == "all_to_all" else 1,
+                     r0["shape"][-1]],
+            seconds_per_rank=[r["ep"][path]["seconds"] for r in res],
+            all_to_all_bytes_per_rank=[a.get("bytes", 0) for a in a2a],
+            all_to_all_calls=a2a[0].get("calls", 0),
+            comm_rank0=r0["comm"], drops_per_shard=r0["drops_per_shard"],
+            max_abs_err=r0["max_abs_err"],
+            worst_over_bound=r0["worst_over_bound"], tol=EP_TOL,
+            tol_abs=EP_ABS, aux=r0["aux"], aux_oracle=r0["aux_oracle"],
+            gmm_launches_per_rank=[r["ep"][path]["launches"] for r in res])
+        if not (r0["finite"] and r0["worst_over_bound"] <= 1.0):
+            raise AssertionError(f"distributed EP ({path}): "
+                                 f"{r0['worst_over_bound']} of the bound")
+        if abs(r0["aux"] - r0["aux_oracle"]) > 1e-4 * abs(r0["aux_oracle"]):
+            raise AssertionError(f"distributed EP ({path}): aux "
+                                 f"{r0['aux']} vs {r0['aux_oracle']}")
+        if path == "all_to_all" and a2a[0].get("calls") != 2:
+            raise AssertionError("distributed EP: the all-to-all path made "
+                                 f"{a2a[0].get('calls')} exchanges")
+        for r in res:
+            n = r["ep"][path]["launches"]
+            if n["gmm"] != 3 or n["gmm_tc"] != n["gmm"]:
+                raise AssertionError(f"distributed EP ({path}): gmm "
+                                     f"launches {n} (3, all tc, expected)")
+            launches["gmm"] += n["gmm"]
+            launches["gmm_tc"] += n["gmm_tc"]
+    row = res[0]["ep"]["gmm_ep"]
+    log("kernel_ep", card=card, name="gmm", **row)
+    return launches
+
+
+def check_dist_train(res, card) -> None:
+    """(d2) in the parent: the one-process steps of each model on the same
+    weights and batches (DeepSeekMoE with the EP path's per-shard
+    routing), against rank 0's records."""
+    import math
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt_mod
+    data, model = DIST_MESH
+    failed = []
+    for arch in DIST_TRAIN:
+        cfg = _train_cfg(arch)
+        leaves = _train_leaves(cfg)
+        mesh_rec = res[0]["train"][arch]
+        logit_max = []
+
+        def record_max(f):
+            def lm_head(m, c, x, *rest):
+                logits = f(m, c, x, *rest)
+                with torch.no_grad():
+                    logit_max.append(float(torch.maximum(
+                        logits.amax(-1), -logits.amin(-1)).mean()))
+                return logits
+            return lm_head
+        layer = moe_mod.per_shard_layer(data, model) if cfg.moe else None
+        with replaced(tfm, "_lm_head", record_max):
+            metrics, seconds, records, m1, o1 = train_on(
+                cfg, None, DEVICE, leaves, moe_layer=layer)
+        del m1, o1
+        torch.cuda.empty_cache()
+        loss_tol = 2.0 ** -7 * sum(logit_max) / len(logit_max)
+        got = mesh_rec["metrics"]
+        loss_err = [abs(a[0] - b[0]) for a, b in zip(got, metrics)]
+        cos = {}
+        for step, (ra, rb) in enumerate(zip(mesh_rec["records"], records)):
+            for n in leaves[0]:
+                cos[f"{n}@{step + 1}"] = cosine(ra["before"][n][1],
+                                                rb["before"][n][1])
+            for n in leaves[1]:
+                cos[f"{n}@{step + 1}"] = cosine(ra["grads"][n],
+                                                rb["grads"][n])
+        decays = {n: opt_mod.decays(n, mesh_rec["records"][0]["before"][n][0])
+                  for n in leaves[0]}
+        on_card = [{**r, "before": {n: tuple(t.to(DEVICE) for t in v)
+                                    for n, v in r["before"].items()},
+                    "after": {n: tuple(t.to(DEVICE) for t in v)
+                              for n, v in r["after"].items()}}
+                   for r in mesh_rec["records"]]
+        upd = check_updates(on_card, _train_opt(), decays)
+        del on_card
+        log("distributed_train", card=card, arch=arch, mesh=list(DIST_MESH),
+            layers=cfg.num_layers, tokens=[DIST_TRAIN_BATCH,
+                                           DIST_TRAIN[arch][1]],
+            microbatches=cfg.microbatches,
+            losses=[m[0] for m in got], losses_one_device=[m[0] for m in
+                                                           metrics],
+            loss_error=loss_err, loss_tol=loss_tol,
+            grad_norms=[m[1] for m in got],
+            grad_norms_one_device=[m[1] for m in metrics],
+            step_s_per_rank=[r["train"][arch]["seconds"] for r in res],
+            step_s_one_device=seconds, gradient_cosine=cos,
+            gradient_cosine_min=GRAD_COSINE,
+            update_error_over_allowance=upd["worst"],
+            comm_rank0=mesh_rec["comm"],
+            param_bytes_per_rank=[r["train"][arch]["local_param_bytes"]
+                                  for r in res],
+            param_bytes_by_rules=mesh_rec["rules_param_bytes"],
+            peak_per_rank=[r["train"][arch]["peak"] for r in res])
+        if arch == DIST_CKPT_ARCH:
+            log("distributed_checkpoint", card=card, arch=arch,
+                bytes=mesh_rec["checkpoint_bytes"],
+                save_s=mesh_rec["save_s"],
+                restore_mesh_4x1_s=mesh_rec["restore_41_s"],
+                restore_one_device_s=mesh_rec["restore_one_s"],
+                train_phase_s=mesh_rec["phase_s"],
+                restore_mesh_4x1_byte_equal=mesh_rec["restore_41_equal"],
+                restore_one_device_byte_equal=mesh_rec[
+                    "restore_one_equal"])
+        if not all(math.isfinite(m[0]) for m in got):
+            failed.append(f"{arch}: losses {got}")
+        failed += [f"{arch}: step {i + 1} loss off by {e}" for i, e in
+                   enumerate(loss_err) if not e <= loss_tol]
+        # Step 1 holds both sides' gradients at the same weights; step 2's
+        # weights already differ by the two steps' rounding (logged).
+        failed += [f"{arch}: gradient cosine of {n}: {c}"
+                   for n, c in cos.items()
+                   if n.endswith("@1") and not c >= GRAD_COSINE]
+        failed += [f"{arch}: update of {k}: {e} allowances" for k, (e, _)
+                   in upd["worst"].items() if not e <= 1.0]
+        if arch == DIST_CKPT_ARCH and not (
+                mesh_rec["restore_41_equal"]
+                and mesh_rec["restore_one_equal"]):
+            failed.append(f"{arch}: a restored checkpoint is not "
+                          "byte-equal")
+        for r in res:
+            if r["train"][arch]["local_param_bytes"] != \
+                    mesh_rec["rules_param_bytes"]:
+                failed.append(f"{arch}: a rank holds "
+                              f"{r['train'][arch]['local_param_bytes']} "
+                              "parameter bytes, not the rules'")
+        del records
+    if failed:
+        raise AssertionError("distributed train: " + "; ".join(failed))
+
+
+def check_dist_serve(res, card, plan) -> dict:
+    """(d3) in the parent: identical completions on every rank, the
+    numbers, then the one-process engine's first-token logits and top-k
+    choices on the same weights against the mesh's."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import ServingEngine
+    full = [r["serve"]["full"] for r in res]
+    f0 = full[0]
+    dec = sorted(f0["decode_s"])
+    comm = {}
+    for r in full:
+        for k, v in r["comm"].items():
+            comm.setdefault(k, []).append(v["bytes"])
+    log("distributed_serve", card=card, arch=DIST_ARCH,
+        layers=f0["layers"], cut_moe_layers=plan["cut_moe_layers"],
+        requests=DIST_SERVE_REQUESTS, new_tokens=DIST_SERVE_NEW,
+        init_s=f0["init_s"], wall_s=[r["wall_s"] for r in full],
+        prefill_s=f0["prefill_s"], decode_steps=len(dec),
+        decode_ms_median=dec[len(dec) // 2] * 1e3,
+        decode_ms_min=dec[0] * 1e3, decode_ms_max=dec[-1] * 1e3,
+        peak_per_rank=[r["peak"] for r in full],
+        param_bytes_per_rank=[r["local_param_bytes"] for r in full],
+        collective_bytes_per_rank=comm, cost=f0["cost"],
+        gmm_launches_per_rank=[r["launches"] for r in full])
+    launches = {"gmm": 0, "gmm_tc": 0}
+    moe_layers = f0["layers"] - 1
+    for r in full:
+        if r["completions"] != f0["completions"]:
+            raise AssertionError("distributed serve: ranks differ in their "
+                                 "completions")
+        n = r["launches"]
+        # 3 a moe layer in the one prefill (decode runs the reference
+        # route, as in the reference's ``forward_decode``).
+        want = 3 * moe_layers
+        if n["gmm"] != want or n["gmm_tc"] != n["gmm"]:
+            raise AssertionError(f"distributed serve: gmm launches {n}, "
+                                 f"{want} on the tc route expected")
+        launches["gmm"] += n["gmm"]
+        launches["gmm_tc"] += n["gmm_tc"]
+    if f0["cost"]["chips"] != DIST_WORLD:
+        raise AssertionError(f"distributed serve: cost_report chips "
+                             f"{f0['cost']['chips']}")
+    for c in f0["completions"]:
+        if len(c) != DIST_SERVE_NEW:
+            raise AssertionError(f"distributed serve: completion {c}")
+
+    # The one-process engine on the same weights.
+    pcfg = parity_cfg()
+    eng = ServingEngine(pcfg, DIST_SERVE_REQUESTS, DIST_PARITY_PROMPT,
+                        DIST_PARITY_PROMPT + DIST_SERVE_NEW,
+                        seed=SERVE_SEED, impl="flash_moe", device=DEVICE)
+    reqs = parity_requests(pcfg.vocab_size)
+    toks = eng._batch_prompts(reqs)
+    choices = []
+
+    def record(f):
+        def route(params, x2d, mo, norm_topk):
+            gates, idx, aux = f(params, x2d, mo, norm_topk)
+            choices.append(_host(idx))
+            return gates, idx, aux
+        return route
+    with replaced(moe_mod, "_route", record):
+        logits, _ = eng.prefill(eng.model, {"tokens": toks})
+    one = [r.completion.tolist() for r in eng.serve(reqs)]
+    logits = _host(logits.float())
+
+    def eng_prefill(cfg, toks):
+        return eng.prefill(eng.model, {"tokens": toks})
+    par = res[0]["serve"]["parity"]
+    mesh_choices = _shard_choices([r["serve"]["parity"]["choices"]
+                                   for r in res], DIST_WORLD, DIST_MESH[1])
+    differ = 0
+    for a, b in zip(mesh_choices, choices):
+        b = b.reshape(a.shape)
+        differ += int((a.sort(-1).values != b.sort(-1).values)
+                      .any(-1).sum())
+    err = float((par["logits"] - logits).abs().max())
+    same = {}
+    if differ:
+        # A flipped near-tie moves the logits by more than rounding: hold
+        # the one-process engine to the mesh's choices instead.
+        replay = RouteLog([c.reshape(-1, c.shape[-1]).to(DEVICE)
+                           for c in mesh_choices])
+        try:
+            again, _ = eng_prefill(pcfg, toks)
+        finally:
+            replay.restore()
+        logits = _host(again.float())
+        same = {"same_experts_max_abs_diff": float(
+            (par["logits"] - logits).abs().max())}
+    diff = same.get("same_experts_max_abs_diff", err)
+    top2 = logits.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    decided = gap > 2 * diff
+    tok_mesh, tok_one = par["logits"].argmax(-1), logits.argmax(-1)
+    tol = LOGIT_TOL[DIST_ARCH]
+    log("distributed_serve_parity", card=card, moe_layers=pcfg.num_layers - 1,
+        prompt=DIST_PARITY_PROMPT, capacity_factor=pcfg.moe.capacity_factor,
+        first_token_logit_max_abs_diff=err, tol=tol,
+        tokens_differing_in_expert_choice=differ,
+        expert_choices=sum(int(c[..., 0].numel()) for c in mesh_choices),
+        **same, first_token_mesh=tok_mesh.tolist(),
+        first_token_one_process=tok_one.tolist(),
+        top1_top2_gap=gap.tolist(), decided=decided.tolist(),
+        completions_equal=par["completions"] == one)
+    if not diff <= tol or bool((decided & (tok_mesh != tok_one)).any()):
+        raise AssertionError(f"distributed serve parity: logits off by "
+                             f"{diff} (tol {tol}) on the same expert "
+                             f"choices, first tokens {tok_mesh.tolist()} vs "
+                             f"{tok_one.tolist()}")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_dist_compress(res, card) -> None:
+    c = [r["compress"] for r in res]
+    log("distributed_compressed_psum", card=card, mesh=[2, 2],
+        axes=["pod", "data"], **c[0],
+        wire_bytes_per_rank=[x["wire_bytes"] for x in c],
+        bytes_per_element=c[0]["wire_bytes"] / c[0]["elements"] / 9)
+    for x in c:
+        if not (x["rel"] < 0.02 and x["error_state_min_max"] > 0
+                and x["rel9_over_rel"] < 1.0):
+            raise AssertionError(f"compressed_psum: {x}")
+        # 9 calls a leaf, one int8 byte an element to the one peer.
+        if x["wire_bytes"] != 9 * x["elements"]:
+            raise AssertionError(f"compressed_psum: {x['wire_bytes']} wire "
+                                 f"bytes for {x['elements']} elements")
+
+
+def run_distributed(card: str) -> dict:
+    """The distributed phase: 4 ranks on the card through gloo ((d1)-(d4)),
+    then one NCCL rank ((d5)); returns the grouped matmul's launches on
+    its paths."""
+    import torch
+    from repro_torch.launch import mesh as mesh_mod
+    torch.cuda.empty_cache()
+    plan = dist_plan(card)
+    t0 = time.perf_counter()
+    res = mesh_mod.spawn(dist_rank_main, DIST_WORLD, plan["serve_layers"],
+                         backend="gloo", device=DEVICE,
+                         timeout=DIST_TIMEOUT, transport=DIST_TRANSPORT)
+    log("distributed_ranks", card=card, seconds=time.perf_counter() - t0,
+        backend="gloo", transport=DIST_TRANSPORT,
+        mailbox_bytes_per_rank=[r["mailbox"] for r in res],
+        devices=[r["device"] for r in res],
+        ep_s=res[0]["ep"]["phase_s"], train_s=res[0]["train_phase_s"],
+        serve_s=res[0]["serve_phase_s"],
+        ep_param_bytes_per_rank=[r["ep"]["local_param_bytes"] for r in res])
+    if any(not r["device"].startswith(DEVICE) for r in res):
+        raise AssertionError(f"distributed: a rank ran on "
+                             f"{[r['device'] for r in res]}")
+    launches = check_dist_ep(res, card)
+    check_dist_compress(res, card)
+    t0 = time.perf_counter()
+    check_dist_train(res, card)
+    t1 = time.perf_counter()
+    for k, n in check_dist_serve(res, card, plan).items():
+        launches[k] += n
+    log("distributed_parent", card=card, train_check_s=t1 - t0,
+        serve_check_s=time.perf_counter() - t1)
+    del res
+    t0 = time.perf_counter()
+    (nccl,) = mesh_mod.spawn(nccl_rank_main, 1, backend="nccl",
+                             device="cuda", timeout=300)
+    log("distributed_nccl", card=card, seconds=time.perf_counter() - t0,
+        **nccl)
+    if not (nccl["backend"] == "nccl" and nccl["ep_equal"]
+            and nccl["compress_rel"] < 0.02 and nccl["all_reduce"] ==
+            [1.0] * 4 and nccl["launches"]["gmm"] == 3
+            and nccl["launches"]["gmm_tc"] == 3):
+        raise AssertionError(f"distributed nccl: {nccl}")
+    launches["gmm"] += nccl["launches"]["gmm"]
+    launches["gmm_tc"] += nccl["launches"]["gmm_tc"]
+    return launches
+
+
 MODEL_CHECKS = {
     "recurrentgemma-2b": lambda rec, n: check_flash(rec, n)
     + check_rglru(rec, n),
@@ -2544,6 +3661,11 @@ def main() -> int:
     if "train" in PHASES:
         run_train(smi)
         run_resume(smi)
+    if "distributed" in PHASES:
+        dist = run_distributed(smi)
+        for row in kernels:
+            if row["name"] == "gmm":
+                row["launches"] += dist["gmm"]
 
     if failures:
         raise AssertionError("; ".join(failures))

@@ -17,6 +17,8 @@ cd "$(dirname "$0")/.."
 export PYTHONPATH="src${PYTHONPATH:+:$PYTHONPATH}"
 export JAX_PLATFORMS="${JAX_PLATFORMS:-cpu}"
 
+# tests/test_torch_dist_*.py start gloo CPU ranks (launch.mesh.spawn) and
+# run the reference on 8 fake host devices in a subprocess.
 python -m pytest -q tests/test_torch_*.py
 
 REQUIRED_SECTIONS="shuffle_elision,join_pipeline,dup_key_join,partition_fusion,pipeline,shuffle,concurrent_serving,tiered_exchange,adaptive_chaos,out_of_core,fault_recovery"

@@ -35,15 +35,18 @@ class KVCache(NamedTuple):
 def init_attention(gen: torch.Generator, cfg: ArchConfig) -> dict:
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
-        "wq": dense_init(gen, (d, h, dh)),
-        "wk": dense_init(gen, (d, hkv, dh)),
-        "wv": dense_init(gen, (d, hkv, dh)),
-        "wo": dense_init(gen, (h, dh, d), fan_in=h * dh),
+        "wq": dense_init(gen, (d, h, dh), ("embed", "heads", "head_dim")),
+        "wk": dense_init(gen, (d, hkv, dh),
+                         ("embed", "kv_heads", "head_dim")),
+        "wv": dense_init(gen, (d, hkv, dh),
+                         ("embed", "kv_heads", "head_dim")),
+        "wo": dense_init(gen, (h, dh, d), ("heads", "head_dim", "embed"),
+                         fan_in=h * dh),
     }
     if cfg.qkv_bias:
-        p["bq"] = zeros_init(gen, (h, dh))
-        p["bk"] = zeros_init(gen, (hkv, dh))
-        p["bv"] = zeros_init(gen, (hkv, dh))
+        p["bq"] = zeros_init(gen, (h, dh), ("heads", "head_dim"))
+        p["bk"] = zeros_init(gen, (hkv, dh), ("kv_heads", "head_dim"))
+        p["bv"] = zeros_init(gen, (hkv, dh), ("kv_heads", "head_dim"))
     return p
 
 

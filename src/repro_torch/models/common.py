@@ -1,22 +1,48 @@
-"""Shared model infrastructure: parameter containers, initializers, norms
-and rotary embeddings (the port of ``repro.models.common``).
+"""Shared model infrastructure: parameter containers with logical
+sharding axes, initializers, norms, rotary embeddings and the activation
+constraint helper (the port of ``repro.models.common``).
 
-Parameters are plain tensors held by :class:`Params`, an ``nn.Module``
-that mirrors the reference's nested parameter dicts: ``p["wq"]`` reads a
-tensor, ``p["attn"]`` a nested group. The reference's logical sharding
-axes (``Param``, ``split_tree``, ``shard``) have no counterpart: the port
-runs on one device. Initializers draw from an explicit
-``torch.Generator`` with the reference's distributions; the numbers
-differ from ``jax.random``'s, so parity tests load the reference's
-weights through ``models.convert``.
+Initializers return ``Param(value, axes)`` pairs, as the reference's do,
+so each ``init_*`` is the one source of both a tensor and its logical
+axes; ``split_tree`` separates them. The values end up in
+:class:`Params`, an ``nn.Module`` that mirrors the reference's nested
+parameter dicts: ``p["wq"]`` reads a tensor, ``p["attn"]`` a nested
+group. On a mesh each parameter is a DTensor holding the rank's shard by
+``sharding.rules`` (see ``models.transformer.init_model``).
+Initializers draw from an explicit ``torch.Generator`` with the
+reference's distributions; the numbers differ from ``jax.random``'s, so
+parity tests load the reference's weights through ``models.convert``.
+A generator of ``None`` makes shapes only (on the ``meta`` device):
+``transformer.param_axes`` reads the axes of a full-size config so.
+
+``shard`` is the reference's activation constraint. The port has no
+activation tensor parallelism (the ranks of ``"model"`` compute the
+dense layers of one batch shard each whole), so under a mesh it checks
+what the rules leave to check: that an activation holds the rank's
+batch shard.
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 from torch import nn
+
+
+class Param(NamedTuple):
+    value: torch.Tensor
+    axes: tuple            # logical axis names, len == value.ndim
+
+
+def split_tree(tree):
+    """(values, axes): nested dicts of the same structure."""
+    if isinstance(tree, Param):
+        return tree.value, tree.axes
+    values, axes = {}, {}
+    for k, v in tree.items():
+        values[k], axes[k] = split_tree(v)
+    return values, axes
 
 
 class Params(nn.Module):
@@ -46,27 +72,88 @@ class Params(nn.Module):
 # Initializers (reference: repro.models.common:47-63)
 # ---------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape) -> torch.Tensor:
+def init_device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where ``gen`` draws: its device, or ``meta`` for ``None``."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def _normal(gen: Optional[torch.Generator], shape) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=gen.device)
 
 
-def dense_init(gen, shape, scale: float = 1.0,
-               fan_in: Optional[int] = None) -> torch.Tensor:
+def full_init(gen, shape, axes, value: float) -> Param:
+    return Param(torch.full(shape, value, dtype=torch.float32,
+                            device=init_device(gen)), axes)
+
+
+def dense_init(gen, shape, axes, scale: float = 1.0,
+               fan_in: Optional[int] = None) -> Param:
     fan = fan_in if fan_in is not None else shape[0]
-    return _normal(gen, shape) * (scale / math.sqrt(fan))
+    return Param(_normal(gen, shape) * (scale / math.sqrt(fan)), axes)
 
 
-def zeros_init(gen, shape) -> torch.Tensor:
-    return torch.zeros(shape, dtype=torch.float32, device=gen.device)
+def zeros_init(gen, shape, axes) -> Param:
+    return full_init(gen, shape, axes, 0.0)
 
 
-def ones_init(gen, shape) -> torch.Tensor:
-    return torch.ones(shape, dtype=torch.float32, device=gen.device)
+def ones_init(gen, shape, axes) -> Param:
+    return full_init(gen, shape, axes, 1.0)
 
 
-def embed_init(gen, shape) -> torch.Tensor:
-    return _normal(gen, shape) * 0.02
+def embed_init(gen, shape, axes) -> Param:
+    return Param(_normal(gen, shape) * 0.02, axes)
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis sharding constraints
+# ---------------------------------------------------------------------------
+
+_ACTIVATION_RULES: dict = {}
+_ACTIVE: dict = {"mesh": None, "batch": 0}
+
+
+def set_activation_rules(rules: dict, mesh=None, batch: int = 0) -> None:
+    """Install logical->mesh axis rules, the mesh and the global batch
+    for activation constraints (the step builders call it)."""
+    _ACTIVATION_RULES.clear()
+    _ACTIVATION_RULES.update(rules)
+    _ACTIVE["mesh"] = mesh
+    _ACTIVE["batch"] = batch
+
+
+def clear_activation_rules() -> None:
+    _ACTIVATION_RULES.clear()
+    _ACTIVE["mesh"] = None
+    _ACTIVE["batch"] = 0
+
+
+def shard(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
+    """The reference's sharding constraint by logical axes; a no-op
+    without a mesh. Under a mesh ``x`` is the rank's local tensor: its
+    ``batch`` dim must hold the global batch's share of the axes the
+    rules put the batch on."""
+    mesh = _ACTIVE["mesh"]
+    if not _ACTIVATION_RULES or mesh is None or not _ACTIVE["batch"]:
+        return x
+    from repro_torch.sharding import rules as shrules
+    shape = shrules.mesh_shape(mesh)
+    for dim, ax in zip(x.shape, logical_axes):
+        if ax != "batch":
+            continue
+        names = _ACTIVATION_RULES.get("batch") or ()
+        names = names if isinstance(names, tuple) else (names,)
+        size = 1
+        for a in names:
+            size *= shape.get(a, 1)
+        want = _ACTIVE["batch"] // size if _ACTIVE["batch"] % size == 0 \
+            else _ACTIVE["batch"]
+        if dim != want:
+            raise ValueError(f"activation batch dim {dim}: the rank's shard "
+                             f"of batch {_ACTIVE['batch']} is {want}")
+    return x
 
 
 # ---------------------------------------------------------------------------

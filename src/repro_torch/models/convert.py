@@ -11,7 +11,9 @@ order; every weight keeps the reference's layout (``wq`` (D, H, Dh) and
 so on), so the conversion is a copy. Takes numpy arrays (convert with
 ``np.asarray`` first) and imports nothing of the reference.
 ``to_reference`` stacks the port's layers back into that tree, for the
-parameters or for any dict in their layout (gradients, moments).
+parameters or for any dict in their layout (gradients, moments). With a
+``mesh``, ``from_reference`` keeps each rank's shards by the rules
+(DTensors), and ``to_reference`` gathers a sharded model whole again.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import shard_map as sm
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as tfm
 
@@ -55,16 +58,33 @@ def _to_torch(tree: Any, device, dtype: Optional[torch.dtype]) -> Any:
     return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
 
+def _nest_axes(axes: dict, prefix: str) -> dict:
+    return _nest({k[len(prefix) + 1:]: v for k, v in axes.items()
+                  if k.startswith(prefix + ".")})
+
+
 def from_reference(cfg: ArchConfig, params: dict, *, device="cuda",
-                   dtype: Optional[torch.dtype] = None) -> tfm.Model:
+                   dtype: Optional[torch.dtype] = None, mesh=None,
+                   rules: Optional[dict] = None) -> tfm.Model:
     """The port's model holding the reference's weights ``params``
     (numpy arrays) on ``device``, optionally cast to ``dtype``. The
-    default, the card, raises when there is none."""
+    default, the card, raises when there is none. With ``mesh``, each
+    rank keeps its shards of every leaf by the rules, a layer at a
+    time."""
     device = resolve_device(device)
-    top = {k: _to_torch(params[k], device, dtype)
-           for k in ("embed", "ln_f", "lm_head") if k in params}
-    layers = [tfm.Layer(kind, _to_torch(tree, device, dtype))
-              for kind, tree in unstack_segments(cfg, params["segments"])]
+    axes = tfm.param_axes(cfg) if mesh is not None else None
+
+    def place(tree, prefix):
+        values = _to_torch(tree, device, dtype)
+        if mesh is None:
+            return values
+        return tfm.distribute(values, _nest_axes(axes, prefix), mesh, rules)
+
+    top = place({k: params[k] for k in ("embed", "ln_f", "lm_head")
+                 if k in params}, "top")
+    layers = [tfm.Layer(kind, place(tree, f"layers.{i}"))
+              for i, (kind, tree) in enumerate(
+                  unstack_segments(cfg, params["segments"]))]
     return tfm.Model(top, layers)
 
 
@@ -87,6 +107,9 @@ def _stack(trees: list) -> Any:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
+    if isinstance(t, sm.DTensor):
+        t = sm.gather_full(t.to_local().detach(), sm.spec_of(t),
+                           t.device_mesh)
     t = t.detach().cpu()
     # numpy has no bfloat16: such leaves come back widened, exactly.
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -96,7 +119,8 @@ def to_reference(cfg: ArchConfig, tree) -> dict:
     """The reference's parameter tree (numpy arrays, segments stacked on
     a leading layers axis) from the port's ``Model`` or from a dict in
     its ``named_parameters()`` layout (gradients, optimizer moments).
-    bfloat16 leaves come back as float32."""
+    bfloat16 leaves come back as float32. A sharded model is gathered
+    whole on every rank (a collective: every rank calls it)."""
     flat = dict(tree.named_parameters()) if isinstance(tree, nn.Module) \
         else tree
     out = {k: _host(flat[f"top.{k}"]) for k in ("embed", "ln_f", "lm_head")

@@ -8,9 +8,10 @@ from repro_torch.models.common import dense_init, silu
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
     return {
-        "w_gate": dense_init(gen, (d_model, d_ff)),
-        "w_up": dense_init(gen, (d_model, d_ff)),
-        "w_down": dense_init(gen, (d_ff, d_model), fan_in=d_ff),
+        "w_gate": dense_init(gen, (d_model, d_ff), ("embed", "ff")),
+        "w_up": dense_init(gen, (d_model, d_ff), ("embed", "ff")),
+        "w_down": dense_init(gen, (d_ff, d_model), ("ff", "embed"),
+                             fan_in=d_ff),
     }
 
 

@@ -27,7 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import rglru_scan as scan_kernel
-from repro_torch.models.common import dense_init, zeros_init
+from repro_torch.models.common import (Param, dense_init, init_device,
+                                       zeros_init)
 
 RGLRU_C = 8.0
 
@@ -42,18 +43,18 @@ def init_rglru(gen: torch.Generator, cfg: ArchConfig) -> dict:
     w = cfg.recurrent.lru_width or d
     cw = cfg.recurrent.conv_width
     return {
-        "w_in_rnn": dense_init(gen, (d, w)),
-        "w_in_gate": dense_init(gen, (d, w)),
-        "conv_w": dense_init(gen, (cw, w), fan_in=cw),
-        "conv_b": zeros_init(gen, (w,)),
-        "gate_a": dense_init(gen, (w, w)),
-        "gate_a_b": zeros_init(gen, (w,)),
-        "gate_x": dense_init(gen, (w, w)),
-        "gate_x_b": zeros_init(gen, (w,)),
+        "w_in_rnn": dense_init(gen, (d, w), ("embed", "ff")),
+        "w_in_gate": dense_init(gen, (d, w), ("embed", "ff")),
+        "conv_w": dense_init(gen, (cw, w), (None, "ff"), fan_in=cw),
+        "conv_b": zeros_init(gen, (w,), ("ff",)),
+        "gate_a": dense_init(gen, (w, w), ("ff", None)),
+        "gate_a_b": zeros_init(gen, (w,), ("ff",)),
+        "gate_x": dense_init(gen, (w, w), ("ff", None)),
+        "gate_x_b": zeros_init(gen, (w,), ("ff",)),
         # Lambda init so a^c ~ U[0.9, 0.999] at r=1 (Griffin init)
-        "lam": torch.linspace(0.65, 4.6, w, dtype=torch.float32,
-                              device=gen.device),
-        "w_out": dense_init(gen, (w, d), fan_in=w),
+        "lam": Param(torch.linspace(0.65, 4.6, w, dtype=torch.float32,
+                                    device=init_device(gen)), ("ff",)),
+        "w_out": dense_init(gen, (w, d), ("ff", "embed"), fan_in=w),
     }
 
 

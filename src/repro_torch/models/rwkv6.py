@@ -21,8 +21,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import rwkv6_scan as scan_kernel
-from repro_torch.models.common import (dense_init, group_norm_heads,
-                                       ones_init, silu, zeros_init)
+from repro_torch.models.common import (dense_init, full_init,
+                                       group_norm_heads, ones_init, silu,
+                                       zeros_init)
 
 DECAY_LORA = 64
 
@@ -33,42 +34,39 @@ class RwkvState(NamedTuple):
     x_prev_c: torch.Tensor    # (B, D) last input to channel-mix
 
 
-def _full(gen, shape, value: float) -> torch.Tensor:
-    return torch.full(shape, value, dtype=torch.float32, device=gen.device)
-
-
 def init_rwkv(gen: torch.Generator, cfg: ArchConfig) -> dict:
     d = cfg.d_model
     hd = cfg.recurrent.head_dim
     h = d // hd
     return {
         # token-shift interpolation weights per projection
-        "mu_r": _full(gen, (d,), 0.5),
-        "mu_k": _full(gen, (d,), 0.5),
-        "mu_v": _full(gen, (d,), 0.5),
-        "mu_w": _full(gen, (d,), 0.5),
-        "mu_g": _full(gen, (d,), 0.5),
-        "w_r": dense_init(gen, (d, d)),
-        "w_k": dense_init(gen, (d, d)),
-        "w_v": dense_init(gen, (d, d)),
-        "w_g": dense_init(gen, (d, d)),
-        "w_o": dense_init(gen, (d, d)),
+        "mu_r": full_init(gen, (d,), ("embed",), 0.5),
+        "mu_k": full_init(gen, (d,), ("embed",), 0.5),
+        "mu_v": full_init(gen, (d,), ("embed",), 0.5),
+        "mu_w": full_init(gen, (d,), ("embed",), 0.5),
+        "mu_g": full_init(gen, (d,), ("embed",), 0.5),
+        "w_r": dense_init(gen, (d, d), ("embed", "heads_flat")),
+        "w_k": dense_init(gen, (d, d), ("embed", "heads_flat")),
+        "w_v": dense_init(gen, (d, d), ("embed", "heads_flat")),
+        "w_g": dense_init(gen, (d, d), ("embed", "heads_flat")),
+        "w_o": dense_init(gen, (d, d), ("heads_flat", "embed")),
         # data-dependent decay LoRA: w_t = exp(-exp(w0 + tanh(x A) B))
-        "decay_w0": _full(gen, (d,), -5.0),
-        "decay_a": dense_init(gen, (d, DECAY_LORA)),
-        "decay_b": dense_init(gen, (DECAY_LORA, d), fan_in=DECAY_LORA),
-        "bonus_u": zeros_init(gen, (h, hd)),
-        "ln_x_w": ones_init(gen, (d,)),
-        "ln_x_b": zeros_init(gen, (d,)),
+        "decay_w0": full_init(gen, (d,), ("embed",), -5.0),
+        "decay_a": dense_init(gen, (d, DECAY_LORA), ("embed", None)),
+        "decay_b": dense_init(gen, (DECAY_LORA, d), (None, "embed"),
+                              fan_in=DECAY_LORA),
+        "bonus_u": zeros_init(gen, (h, hd), ("heads", None)),
+        "ln_x_w": ones_init(gen, (d,), ("embed",)),
+        "ln_x_b": zeros_init(gen, (d,), ("embed",)),
     }
 
 
 def init_rwkv_channel_mix(gen: torch.Generator, cfg: ArchConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mu_k": _full(gen, (d,), 0.5),
-        "w_in": dense_init(gen, (d, f)),
-        "w_out": dense_init(gen, (f, d), fan_in=f),
+        "mu_k": full_init(gen, (d,), ("embed",), 0.5),
+        "w_in": dense_init(gen, (d, f), ("embed", "ff")),
+        "w_out": dense_init(gen, (f, d), ("ff", "embed"), fan_in=f),
     }
 
 

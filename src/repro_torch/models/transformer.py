@@ -9,10 +9,21 @@ weight converter, which unstacks the reference's segments into it.
 Entry points: ``forward_train`` (loss), ``forward_prefill`` (last-token
 logits + caches) and ``forward_decode`` (one-token step); caches are a
 list with one entry per layer (``KVCache``, ``RwkvState`` or
-``RglruState``). Under ``cfg.remat == "block"`` training runs each
-repeat of a segment's unit (the reference's scan body) under
-``torch.utils.checkpoint``, so only the units' inputs stay alive for the
-backward pass and each unit's activations are recomputed.
+``RglruState``). Each takes a ``mesh``: then the model's parameters are
+DTensors placed by ``sharding.rules`` (``init_model(mesh=...)``,
+``convert.from_reference(mesh=...)``), the batch and the caches are the
+rank's batch shard over ``(pod, data)``, every layer gathers its dense
+weights where it uses them (``core.shard_map.gather_param``) and the MoE
+layers run the expert-parallel path. The ranks of ``"model"`` compute
+the dense layers of their batch shard whole: the reference's activation
+tensor parallelism (``ACT_RULES`` on heads, ff and vocab) is not ported.
+The loss sums its numerator and its mask count over the batch axes
+before dividing, as the reference's global mean does.
+
+Under ``cfg.remat == "block"`` training runs each repeat of a segment's
+unit (the reference's scan body) under ``torch.utils.checkpoint``, so
+only the units' inputs stay alive for the backward pass and each unit's
+activations are recomputed.
 
 Block kinds:
   attn    — RMSNorm -> GQA attention -> RMSNorm -> SwiGLU
@@ -31,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import shard_map as sm
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
@@ -38,7 +50,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import Params, embed_init, ones_init, rms_norm
+from repro_torch.models.common import (Params, embed_init, ones_init,
+                                       rms_norm, shard, split_tree)
+from repro_torch.sharding import rules as shrules
 
 PORTED_KINDS = ("attn", "local", "moe", "dense0", "rwkv", "rec")
 _ATTENTION_KINDS = ("attn", "local", "moe", "dense0")
@@ -118,10 +132,10 @@ class Model(nn.Module):
 
 
 def _init_sublayer(gen, kind: str, cfg: ArchConfig) -> dict:
-    p: dict[str, Any] = {"ln1": ones_init(gen, (cfg.d_model,))}
+    p: dict[str, Any] = {"ln1": ones_init(gen, (cfg.d_model,), ("embed",))}
     if kind in _ATTENTION_KINDS:
         p["attn"] = attn_mod.init_attention(gen, cfg)
-        p["ln2"] = ones_init(gen, (cfg.d_model,))
+        p["ln2"] = ones_init(gen, (cfg.d_model,), ("embed",))
         if kind == "moe":
             p["ffn"] = moe_mod.init_moe(gen, cfg)
         elif kind == "dense0":
@@ -130,11 +144,11 @@ def _init_sublayer(gen, kind: str, cfg: ArchConfig) -> dict:
             p["ffn"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff)
     elif kind == "rwkv":
         p["tmix"] = rwkv_mod.init_rwkv(gen, cfg)
-        p["ln2"] = ones_init(gen, (cfg.d_model,))
+        p["ln2"] = ones_init(gen, (cfg.d_model,), ("embed",))
         p["cmix"] = rwkv_mod.init_rwkv_channel_mix(gen, cfg)
     else:
         p["rgl"] = rglru_mod.init_rglru(gen, cfg)
-        p["ln2"] = ones_init(gen, (cfg.d_model,))
+        p["ln2"] = ones_init(gen, (cfg.d_model,), ("embed",))
         p["ffn"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff)
     return p
 
@@ -145,24 +159,89 @@ def _cast(tree: dict, dtype) -> dict:
             for k, v in tree.items()}
 
 
+def _param_trees(cfg: ArchConfig, gen):
+    """("top", tree), then (layer index, kind, tree) per layer in
+    execution order: ``Param`` trees, drawn in the order of the
+    reference's draws."""
+    top = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                               ("vocab", "embed_table")),
+           "ln_f": ones_init(gen, (cfg.d_model,), ("embed",))}
+    if not cfg.tie_embeddings:
+        top["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
+                                    ("embed", "vocab"))
+    yield None, "top", top
+    for i, kind in enumerate(layer_kinds(cfg)):
+        yield i, kind, _init_sublayer(gen, kind, cfg)
+
+
+def _flat(tree: dict, prefix: str) -> dict:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}.{k}"
+        out.update(_flat(v, name) if isinstance(v, dict) else {name: v})
+    return out
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """{parameter name: logical axes} by ``Model.named_parameters()``
+    names, as each ``init_*`` records them (no layers axis: the port does
+    not stack layers). Shapes only: nothing is drawn."""
+    out = {}
+    for i, _, tree in _param_trees(cfg, None):
+        _, axes = split_tree(tree)
+        out.update(_flat(axes, "top" if i is None else f"layers.{i}"))
+    return out
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """{parameter name: shape}, without drawing anything."""
+    out = {}
+    for i, _, tree in _param_trees(cfg, None):
+        values, _ = split_tree(tree)
+        out.update({k: tuple(v.shape) for k, v in
+                    _flat(values, "top" if i is None else
+                          f"layers.{i}").items()})
+    return out
+
+
+def distribute(values: dict, axes: dict, mesh,
+               rules: Optional[dict] = None) -> dict:
+    """``values`` (whole tensors, nested like ``axes``) as DTensors holding
+    this rank's shards by the rules; the whole tensors may be freed."""
+    out = {}
+    for k, v in values.items():
+        if isinstance(v, dict):
+            out[k] = distribute(v, axes[k], mesh, rules)
+            continue
+        spec = shrules.pspec_for(tuple(v.shape), axes[k], mesh, rules)
+        local = sm.local_shard(v, spec, mesh).contiguous().clone()
+        out[k] = sm.make_dtensor(local, spec, mesh, v.shape)
+    return out
+
+
 def init_model(cfg: ArchConfig, gen: torch.Generator,
-               dtype: Optional[torch.dtype] = None) -> Model:
+               dtype: Optional[torch.dtype] = None, *, mesh=None,
+               rules: Optional[dict] = None) -> Model:
     """Random weights with the reference's distributions, drawn on
     ``gen.device``. With ``dtype``, every float32 tensor is cast to it as
     soon as it is drawn (what the serving engine does to the whole tree),
-    so a full-size model never exists in float32 at once."""
+    so a full-size model never exists in float32 at once. With ``mesh``,
+    every rank draws the same weights and keeps its shards (DTensors), a
+    layer at a time."""
     kinds = layer_kinds(cfg)
     for kind in kinds:          # before drawing anything
         check_kind(kind)
-    cast = (lambda t: _cast(t, dtype)) if dtype is not None \
-        else (lambda t: t)
-    top = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model)),
-           "ln_f": ones_init(gen, (cfg.d_model,))}
-    if not cfg.tie_embeddings:
-        top["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size))
-    top = cast(top)
-    layers = [Layer(kind, cast(_init_sublayer(gen, kind, cfg)))
-              for kind in kinds]
+    top, layers = None, []
+    for i, kind, tree in _param_trees(cfg, gen):
+        values, axes = split_tree(tree)
+        if dtype is not None:
+            values = _cast(values, dtype)
+        if mesh is not None:
+            values = distribute(values, axes, mesh, rules)
+        if i is None:
+            top = values
+        else:
+            layers.append(Layer(kind, values))
     return Model(top, layers)
 
 
@@ -174,11 +253,25 @@ def param_count(model: Model) -> int:
 # Sub-layer application (single layer, full-sequence or decode)
 # ---------------------------------------------------------------------------
 
+def gathered(p: Params, mesh) -> dict:
+    """A parameter group as nested dicts of the tensors a rank computes
+    with: each DTensor gathered whole (``core.shard_map.gather_param``)."""
+    return {k: gathered(p[k], mesh) if isinstance(p[k], Params)
+            else sm.gather_param(p[k], mesh) for k in p._keys}
+
+
 def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
-                 mode: str, cache=None, cache_len: int = 0, position=None):
+                 mode: str, cache=None, cache_len: int = 0, position=None,
+                 mesh=None):
     """Returns (x, aux, new_cache); ``aux`` is the MoE load-balance loss
-    (a float32 scalar) or None, ``new_cache`` None in ``mode="train"``."""
+    (a float32 scalar) or None, ``new_cache`` None in ``mode="train"``.
+    Under ``mesh`` the layer's weights are gathered here, where they are
+    used; a MoE layer's experts stay sharded (``moe_layer`` runs EP)."""
     kind = p.kind
+    if mesh is not None:
+        p = {k: p[k] if (kind == "moe" and k == "ffn")
+             else gathered(p[k], mesh) if isinstance(p[k], Params)
+             else sm.gather_param(p[k], mesh) for k in p._keys}
     aux = None
     window = cfg.window if kind == "local" else 0
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -197,7 +290,7 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
         x = x + a
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if kind == "moe":
-            f, aux = moe_mod.moe_layer(p["ffn"], h2, cfg,
+            f, aux = moe_mod.moe_layer(p["ffn"], h2, cfg, mesh=mesh,
                                        use_kernel=(impl == "flash_moe"))
         else:
             f = mlp_mod.mlp(p["ffn"], h2)
@@ -271,11 +364,18 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(model: Model, cfg: ArchConfig, batch: dict):
+def _top(model: Model, name: str, mesh):
+    w = model[name]
+    return sm.gather_param(w, mesh) if mesh is not None else w
+
+
+def _embed_inputs(model: Model, cfg: ArchConfig, batch: dict, mesh=None):
     if "embeds" in batch:
         x = batch["embeds"].to(cfg.activation_dtype)
     else:
-        x = model["embed"][batch["tokens"]].to(cfg.activation_dtype)
+        x = _top(model, "embed", mesh)[batch["tokens"]].to(
+            cfg.activation_dtype)
+    x = shard(x, ("batch", "seq", "embed"))
     b, s = x.shape[0], x.shape[1]
     ar = torch.arange(s, device=x.device)
     if cfg.rope == "mrope":
@@ -287,29 +387,46 @@ def _embed_inputs(model: Model, cfg: ArchConfig, batch: dict):
     return x, positions
 
 
-def _lm_head(model: Model, cfg: ArchConfig, x):
-    x = rms_norm(x, model["ln_f"], cfg.norm_eps)
-    w = model["embed"].t() if cfg.tie_embeddings else model["lm_head"]
-    return (x @ w).float()
+def _lm_head(model: Model, cfg: ArchConfig, x, mesh=None):
+    x = rms_norm(x, _top(model, "ln_f", mesh), cfg.norm_eps)
+    w = _top(model, "embed", mesh).t() if cfg.tie_embeddings \
+        else _top(model, "lm_head", mesh)
+    return shard((x @ w).float(), ("batch", "seq", "vocab"))
 
 
-def _train_unit(layers, cfg: ArchConfig, impl: str, x, aux, positions):
+def _train_unit(layers, cfg: ArchConfig, impl: str, x, aux, positions,
+                mesh=None):
     """One repeat of a segment's unit in ``mode="train"``: (x, aux)."""
     for layer in layers:
         x, a, _ = _apply_layer(layer, x, cfg, positions, impl=impl,
-                               mode="train")
+                               mode="train", mesh=mesh)
+        x = shard(x, ("batch", "seq", "embed"))
         if a is not None:
             aux = aux + a
     return x, aux
 
 
+def masked_mean(nll, mask, mesh=None):
+    """Sum(nll * mask) / sum(mask) over the global batch: under a mesh
+    both sums are reduced over the batch axes before the division (a
+    mean of per-shard means is wrong where the shards' masks differ)."""
+    num = torch.sum(nll * mask)
+    den = torch.sum(mask).detach()
+    if mesh is not None:
+        num = sm.reduce_out(num, mesh, sm.dp_axes(mesh))
+        for a in sm.dp_axes(mesh):
+            den = sm.all_reduce(den, mesh, a)
+    return num / den.clamp_min(1.0)
+
+
 def forward_train(model: Model, cfg: ArchConfig, batch: dict, *,
-                  impl: str = "reference"):
+                  impl: str = "reference", mesh=None):
     """Returns (loss, {"nll", "aux"}). batch: tokens|embeds, labels,
-    [mask], [mrope_positions]. The loss is the masked mean of
+    [mask], [mrope_positions] (under ``mesh``, the rank's batch shard;
+    every rank gets the global loss). The loss is the masked mean of
     logsumexp - gold logit, plus ``router_aux_weight`` times the layers'
     summed MoE load-balance losses, as in the reference."""
-    x, positions = _embed_inputs(model, cfg, batch)
+    x, positions = _embed_inputs(model, cfg, batch, mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     i = 0
     for unit, repeats in compute_segments(cfg):
@@ -318,10 +435,11 @@ def forward_train(model: Model, cfg: ArchConfig, batch: dict, *,
             i += len(unit)
             if cfg.remat != "none":
                 x, aux = checkpoint(_train_unit, layers, cfg, impl, x, aux,
-                                    positions, use_reentrant=False)
+                                    positions, mesh, use_reentrant=False)
             else:
-                x, aux = _train_unit(layers, cfg, impl, x, aux, positions)
-    logits = _lm_head(model, cfg, x)
+                x, aux = _train_unit(layers, cfg, impl, x, aux, positions,
+                                     mesh)
+    logits = _lm_head(model, cfg, x, mesh)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -329,34 +447,38 @@ def forward_train(model: Model, cfg: ArchConfig, batch: dict, *,
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(nll)
-    loss = torch.sum(nll * mask) / torch.sum(mask).clamp_min(1.0)
+    loss = masked_mean(nll, mask, mesh)
     if cfg.moe:
         loss = loss + cfg.moe.router_aux_weight * aux
     return loss, {"nll": loss, "aux": aux}
 
 
 def forward_prefill(model: Model, cfg: ArchConfig, batch: dict,
-                    cache_len: int, *, impl: str = "reference"):
+                    cache_len: int, *, impl: str = "reference", mesh=None):
     """Returns (last_token_logits (B, V) float32, caches)."""
-    x, positions = _embed_inputs(model, cfg, batch)
+    x, positions = _embed_inputs(model, cfg, batch, mesh)
     caches = []
     for layer in model.layers:
         x, _, c = _apply_layer(layer, x, cfg, positions, impl=impl,
-                               mode="prefill", cache_len=cache_len)
+                               mode="prefill", cache_len=cache_len,
+                               mesh=mesh)
+        x = shard(x, ("batch", "seq", "embed"))
         caches.append(c)
-    logits = _lm_head(model, cfg, x[:, -1:])
+    logits = _lm_head(model, cfg, x[:, -1:], mesh)
     return logits[:, 0], caches
 
 
 def forward_decode(model: Model, cfg: ArchConfig, tokens, caches,
-                   position: int):
+                   position: int, *, mesh=None):
     """One decode step. tokens: (B, 1) int; position: int. Returns
     (logits (B, V), new_caches). Attention caches are updated in place."""
-    x = model["embed"][tokens].to(cfg.activation_dtype)
+    x = _top(model, "embed", mesh)[tokens].to(cfg.activation_dtype)
+    x = shard(x, ("batch", "seq", "embed"))
     new_caches = []
     for layer, c in zip(model.layers, caches):
         x, _, c = _apply_layer(layer, x, cfg, None, impl="reference",
-                               mode="decode", cache=c, position=position)
+                               mode="decode", cache=c, position=position,
+                               mesh=mesh)
         new_caches.append(c)
-    logits = _lm_head(model, cfg, x)
+    logits = _lm_head(model, cfg, x, mesh)
     return logits[:, 0], new_caches

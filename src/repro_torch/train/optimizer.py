@@ -14,6 +14,12 @@ parameters) or any dict of tensors. ``apply_updates`` writes the new
 parameters and moments in place under ``torch.no_grad()``; the step,
 learning rate and clip scale stay on the parameters' device, so an
 update waits on no host read.
+
+On a mesh the parameters, gradients and moments are DTensors of one
+layout, and each rank updates its local shards. ``global_norm`` is the
+norm of the whole gradient: every rank's local sum of squares, divided
+by the number of ranks holding a copy of that shard, summed over the
+mesh by an all-reduce.
 """
 from __future__ import annotations
 
@@ -23,6 +29,9 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.core import shard_map as sm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +65,12 @@ def init_opt_state(params, cfg: AdamWConfig) -> OptState:
     dt = torch.bfloat16 if cfg.moment_dtype == "bfloat16" else torch.float32
     flat = named_tensors(params)
     device = next(iter(flat.values())).device if flat else None
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt,  # noqa: E731
-                                  device=p.device)
+    def zeros(p):
+        if isinstance(p, DTensor):
+            return sm.make_dtensor(
+                torch.zeros(p.to_local().shape, dtype=dt, device=p.device),
+                sm.spec_of(p), p.device_mesh, p.shape)
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
     return OptState(torch.zeros((), dtype=torch.int32, device=device),
                     {k: zeros(p) for k, p in flat.items()},
                     {k: zeros(p) for k, p in flat.items()})
@@ -74,10 +87,24 @@ def schedule(step, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tree) -> torch.Tensor:
-    total = 0
+    total, mesh = 0, None
     for x in named_tensors(tree).values():
-        total = total + torch.sum(torch.square(x.float()))
+        part = torch.sum(torch.square(_local(x).float()))
+        if isinstance(x, DTensor):
+            mesh = x.device_mesh
+            copies = 1
+            for size, pl in zip(mesh.shape, x.placements):
+                copies *= 1 if pl.is_shard() else size
+            part = part / copies
+        total = total + part
+    if mesh is not None:
+        for axis in sm.axis_names(mesh):
+            total = sm.all_reduce(total, mesh, axis)
     return torch.sqrt(total)
 
 
@@ -129,7 +156,8 @@ def apply_updates(params, grads: dict, state: OptState, cfg: AdamWConfig):
         b1c = 1 - cfg.b1 ** step.float()
         b2c = 1 - cfg.b2 ** step.float()
         for name, p in flat.items():
-            update_leaf(p, grads[name], state.mu[name], state.nu[name],
+            update_leaf(_local(p), _local(grads[name]),
+                        _local(state.mu[name]), _local(state.nu[name]),
                         lr=lr, scale=scale, b1c=b1c, b2c=b2c,
                         decay=decays(name, p), cfg=cfg)
     return params, OptState(step, state.mu, state.nu), \

@@ -1,5 +1,5 @@
 """Elastic, fault-tolerant training loop (the port of
-``repro.train.trainer`` on one device).
+``repro.train.trainer``), on one device or on a mesh.
 
 The trainer is the paper's execution model applied to training: workers are
 stateless step executors; all durable state (params, optimizer, data
@@ -8,12 +8,18 @@ position) lives in the object store. Consequences implemented here:
   * checkpoint/restart — `run()` resumes from the latest manifest; a
     preemption hook can kill the loop at any step (tests do), and a fresh
     Trainer continues bit-exactly;
-  * elastic restore — a restart may restore onto another device (the
-    reference's mesh change becomes a change of ``device``);
+  * elastic restore — a restart may restore onto another mesh, or onto
+    one device: checkpoints hold whole leaves, each restored into the
+    new layout;
   * cost accounting — every run reports elastic (fine-grained) vs
     provisioned (reserved pod) cost and the break-even utilisation, the
     paper's Table-6 economics applied to training jobs. As in the
-    reference, the run is priced at TPU v5e rates per chip, one chip.
+    reference, the run is priced at TPU v5e rates per chip, for the
+    mesh's chips (one without a mesh).
+
+On a mesh every rank runs the loop: each draws the same global batch
+from the pipeline and the step keeps its rows; rank 0's store holds the
+checkpoints.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 from repro_torch.checkpoint import object_store_ckpt as ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import pricing
+from repro_torch.core import shard_map as sm
 from repro_torch.core.device import resolve_device
 from repro_torch.core.storage_service import ObjectStore
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
@@ -48,10 +55,11 @@ class TrainerConfig:
 
 
 class Trainer:
-    """``device`` takes the place of the reference's mesh: the card by
-    default (raises when there is none), ``"cpu"`` when asked.
-    ``initial_params``, the reference's parameter tree as numpy arrays,
-    replaces the seeded draw of the initial weights."""
+    """Trains on ``mesh`` (a ``DeviceMesh`` with the reference's axis
+    names, this process one of its ranks) or, without one, on ``device``:
+    the card by default (raises when there is none), ``"cpu"`` when
+    asked. ``initial_params``, the reference's parameter tree as numpy
+    arrays, replaces the seeded draw of the initial weights."""
 
     def __init__(self, cfg: ArchConfig, store: ObjectStore,
                  data_cfg: DataConfig,
@@ -59,9 +67,12 @@ class Trainer:
                  tcfg: TrainerConfig = TrainerConfig(),
                  ckpt_prefix: str = "ckpt",
                  preemption_hook: Optional[Callable[[int], None]] = None,
-                 device="cuda", initial_params: Optional[dict] = None):
+                 device="cuda", initial_params: Optional[dict] = None,
+                 mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = sm.mesh_device(mesh) if mesh is not None \
+            else resolve_device(device)
         self.store = store
         self.tcfg = tcfg
         self.opt_cfg = opt_cfg
@@ -70,7 +81,8 @@ class Trainer:
         self.initial_params = initial_params
         self.pipeline = TokenPipeline(
             dataclasses.replace(data_cfg, vocab_size=cfg.vocab_size))
-        self.step_fn = step_factory.make_train_step(cfg, opt_cfg)
+        self.step_fn = step_factory.make_train_step(cfg, opt_cfg,
+                                                    mesh=mesh)
         self.metrics_log: list[dict] = []
 
     # ------------------------------------------------------------------
@@ -82,24 +94,26 @@ class Trainer:
         if self.initial_params is not None:
             # Every leaf of the reference's init is float32.
             model = convert.from_reference(self.cfg, self.initial_params,
-                                           device=self.device, dtype=dtype)
+                                           device=self.device, dtype=dtype,
+                                           mesh=self.mesh)
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.tcfg.seed)
-            model = tfm.init_model(self.cfg, gen, dtype=dtype)
+            model = tfm.init_model(self.cfg, gen, dtype=dtype,
+                                   mesh=self.mesh)
         return model, opt_mod.init_opt_state(model, self.opt_cfg)
 
     def _restore_or_init(self):
-        last = ckpt.latest_step(self.store, self.ckpt_prefix)
+        last = ckpt.latest_step(self.store, self.ckpt_prefix, self.mesh)
         model, opt_state = self.init_state()
         if last is None:
             return model, opt_state, 0
         model, _ = ckpt.restore_checkpoint(
             self.store, self.ckpt_prefix, model, step=last,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         opt_state, _ = ckpt.restore_checkpoint(
             self.store, f"{self.ckpt_prefix}-opt", opt_state, step=last,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         return model, opt_state, last
 
     # ------------------------------------------------------------------
@@ -127,7 +141,8 @@ class Trainer:
             # store; a new Trainer picks up from the last manifest.
             return {"status": "preempted", "at_step": step,
                     "resumable_from":
-                    ckpt.latest_step(self.store, self.ckpt_prefix) or 0}
+                    ckpt.latest_step(self.store, self.ckpt_prefix,
+                                     self.mesh) or 0}
         wall = time.time() - t0
         return {"status": "done", "steps": self.tcfg.total_steps,
                 "final_loss": self.metrics_log[-1]["loss"]
@@ -143,7 +158,7 @@ class Trainer:
     # ------------------------------------------------------------------
     def cost_report(self, wall_s: float) -> dict:
         """Elastic vs reserved pod economics for this job (paper §5.2)."""
-        chips = 1
+        chips = sm.mesh_size(self.mesh) if self.mesh is not None else 1
         h = wall_s / 3600.0
         elastic = pricing.tpu_pod_cost(chips, h, "on_demand")
         reserved = pricing.tpu_pod_cost(chips, h, "reserved")
