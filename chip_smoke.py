@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the query engine, LLM
-serving, training and distribution (4 ranks on the one card).
+serving, training, distribution (4 ranks on the one card), the paper's
+benchmarks and the examples.
 
     python3 chip_smoke.py
 
@@ -147,6 +148,33 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    test's checks (one-step error < 0.02, a nonzero error state, the
    9-step mean closer), 1 byte an element on the wire. (d5) One NCCL
    rank on the card: an EP layer call and a ``compressed_psum``.
+12. paper — (run right after the adaptive phase, on its store)
+   ``repro_torch.bench.paper_figures`` and ``paper_queries`` at the
+   reference's sizes, Table 6 on ``Coordinator(backend="torch")`` on the
+   card, so the planner reads the card's ``BENCH_engine_torch.json``;
+   then Table 6 again on the SF1 tables of phase 2 (6,000,000
+   ``lineitem`` rows, one paper worker's partition, and 1,500,000
+   ``orders`` rows). Every Q6 and Q12 result of Table 6 is held against
+   the numpy backend's on the same store; the probe and the segmented
+   reduction must launch in each Table 6 run. Each row is printed with
+   its ``EXPECT`` band, whether it lies inside, and, for Table 6, the
+   paper's value (Q6 +10%, Q12 +6% slowdown; peak-to-average nodes 2.21,
+   2.43); a row outside its band is a finding, not a failure.
+13. examples — the six ``repro_torch.examples`` at their defaults on the
+   card: the query examples' results held against the numpy backend
+   (``concurrent_serving_quickstart``'s 16 served queries, the result
+   cache's replay and invalidation), ``quickstart``'s 30 steps (every
+   loss finite, the last within 0.05 of ln(vocab), the floor of its
+   uniform synthetic tokens, 3 checkpoints, and the last checkpoint's
+   weights moved by training: ``top.ln_f``, which only gradients reach,
+   changed, and no decayed leaf changed along -w alone),
+   ``elastic_training`` preempted at step 12 and resumed from step 10 to
+   step 20, ``serverless_serving``'s 10 requests of 8 tokens; the
+   segmented reduction and flash attention must launch. Flash attention
+   is held against its plain version on every input shape
+   ``serverless_serving`` gave it (float32 at head dim 16: the CUDA-core
+   route, ``csrc/flash_attention.cu``), and that route gets its own row
+   of the kernels line.
 
 Ends with the card's name and power limit, a ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``. Any mismatch or exception exits
@@ -173,8 +201,18 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 RTOL = 1e-6
 QUERIES = ("q1", "q6", "q12", "dup_key_join")
-PHASES = ("queries", "query_serving", "adaptive", "serve", "train",
-          "distributed")
+PHASES = ("queries", "query_serving", "adaptive", "paper", "serve",
+          "train", "distributed", "examples")
+# The phases that need the SF1 tables.
+QUERY_PHASES = ("queries", "query_serving", "adaptive", "paper")
+# The paper phase: Table 6's rows beside the paper's published values
+# (Q6 +10% and Q12 +6% slowdown, peak-to-average nodes 2.21 and 2.43).
+PAPER_TABLE6 = {"table6/q6_slowdown": 1.10, "table6/q12_slowdown": 1.06,
+                "table6/q6_peak_avg_nodes": 2.21,
+                "table6/q12_peak_avg_nodes": 2.43}
+# The kernels Table 6's queries must launch (Q12's probe, the group-bys'
+# segmented reduction); the range probe is recorded where it launches.
+PAPER_KERNELS = ("probe", "segment_reduce")
 # The multi-query serving phase: each query twice, two tenants, submit
 # times this far apart (model time), on a fixed worker budget.
 SERVING_QUERIES = QUERIES + QUERIES
@@ -328,14 +366,17 @@ KEY_COLS = {"q1": ["l_returnflag", "l_linestatus"], "q6": [],
             "q12": ["l_shipmode"], "dup_key_join": ["l_shipmode"]}
 
 
-def check_result(name, got, want) -> None:
+def check_result(name, got, want, keys=None) -> None:
+    """``got`` against the numpy backend's ``want`` by the contract of
+    ``docs/BACKENDS.md``: keys (``KEY_COLS[name]`` unless given), dtypes
+    and integers exactly, floats within ``RTOL``."""
     import numpy as np
     if list(got) != list(want) or got.num_rows != want.num_rows \
             or got.num_rows == 0:
         raise AssertionError(f"{name}: schema or row count differs: "
                              f"{list(got)}/{got.num_rows} vs "
                              f"{list(want)}/{want.num_rows}")
-    keys = KEY_COLS[name]
+    keys = KEY_COLS[name] if keys is None else keys
     order_g = np.lexsort([got[k] for k in keys][::-1]) if keys else [0]
     order_w = np.lexsort([want[k] for k in keys][::-1]) if keys else [0]
     for c in want:
@@ -757,6 +798,300 @@ def profile_queries(store, keys, walls):
         log("profile", name=name, warm_wall_s=walls[name], **summary,
             host_top_self_s=[[f"{pathlib.Path(f).name}:{ln}:{fn}", v[2]]
                              for (f, ln, fn), v in top])
+
+
+# ---------------------------------------------------------------------------
+# The paper's benchmarks and the examples
+# ---------------------------------------------------------------------------
+
+def log_rows(phase: str, rows, expect) -> list[str]:
+    """Log each benchmark row with its band and whether it lies inside
+    (beside the paper's value for Table 6's); return the rows outside."""
+    outside = []
+    for name, us, derived in rows:
+        band = expect.get(name)
+        inside = band is None or band[0] <= derived <= band[1]
+        if not inside:
+            outside.append(name)
+        log(phase, name=name, us_per_call=us, derived=derived,
+            band=band, inside=inside, paper=PAPER_TABLE6.get(name))
+    return outside
+
+
+def table6_on_card(store, keys, size: str) -> dict:
+    """Table 6's queries on ``store`` with the torch backend on the card
+    (the launch counts at 0 just before, read just after), each result
+    held against the numpy backend's on the same store; logs its rows.
+    Returns the launches and the rows outside their bands."""
+    import torch
+    from repro_torch.bench import paper_queries as pq
+    from repro_torch.engine import queries
+    from repro_torch.engine.coordinator import Coordinator
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = pq.table6_runs(store, keys, backend="torch", device=DEVICE)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) * 1e6
+    launches = query_launches()
+    ref = Coordinator(store, backend="numpy")
+    for t, k in keys.items():
+        ref.register_table(t, k)
+    want6 = ref.execute(queries.q6_plan(), query_id="t6-numpy").result
+    want12 = ref.execute(queries.q12_plan(shuffle_partitions=16),
+                         query_id="t12-numpy").result
+    for mode, (r6, r12) in runs.items():
+        check_result("q6", r6.result, want6)
+        check_result("q12", r12.result, want12)
+        log("paper_table6_run", size=size, mode=mode,
+            q6_runtime_s=r6.runtime_s, q12_runtime_s=r12.runtime_s,
+            q6_peak_workers=r6.peak_workers,
+            q12_peak_workers=r12.peak_workers, matches_numpy=True)
+    require_launches(f"paper Table 6 ({size})", launches, PAPER_KERNELS)
+    log("paper_launches", size=size, wall_s=us / 1e6, **launches)
+    outside = log_rows(f"paper_table6_{size}", pq.table6_rows(runs, us),
+                       pq.EXPECT)
+    return {"launches": launches, "outside": outside}
+
+
+def run_paper(store, keys) -> dict:
+    """Phase ``paper``: ``paper_figures`` and ``paper_queries`` at the
+    reference's sizes (Table 6 on the card), then Table 6 again on the
+    SF1 tables of the query phases. A row outside its band is logged, a
+    wrong result or a missing launch fails. Returns the launches."""
+    from repro_torch.bench import paper_figures, paper_queries as pq
+    outside = []
+    for fn in paper_figures.ALL:
+        outside += log_rows("paper_figures", fn(), paper_figures.EXPECT)
+    for fn in (pq.fig14_burst_scan, pq.fig15_shuffle_warm,
+               pq.tpu_cost_extension):
+        outside += log_rows("paper_queries", fn(), pq.EXPECT)
+    launches = dict.fromkeys(QUERY_KERNELS, 0)
+    small_store, small_keys = pq._setup()
+    for st, ks, size in ((small_store, small_keys, "reference"),
+                         (store, keys, "sf1")):
+        t6 = table6_on_card(st, ks, size)
+        outside += [f"{size}:{name}" for name in t6["outside"]]
+        for k, n in t6["launches"].items():
+            launches[k] += n
+    log("paper", launches=launches, rows_outside_bands=outside)
+    return launches
+
+
+# The uniform-token entropy floor: the quickstart's synthetic tokens are
+# drawn uniformly (data/pipeline.py), so no model's expected loss falls
+# below ln(vocab); a trained model's sits within this of it.
+QUICKSTART_LOSS_SLACK = 0.05
+# Only gradients move ``top.ln_f`` (weight decay reaches matrices only):
+# over 100 times float32's rounding of a weight near 1 (6e-8), under a
+# tenth of one Adam step at the peak rate (1e-3).
+QUICKSTART_MOVED = 1e-5
+# A matrix's change from weight decay alone points along -w (cosine 1);
+# Adam's normalised steps on the gradients turn it away (0.01-0.13 in a
+# CPU run of 30 steps; the norm scales, which shrink as they train, are
+# left out).
+QUICKSTART_DECAY_COSINE = 0.5
+
+
+def quickstart_moved(qs) -> dict:
+    """How the quickstart's last checkpoint differs from its seeded
+    initial weights: ``top.ln_f``'s largest change, and the largest
+    cosine between a matrix's change and -w. Raises where training did
+    not move the weights (a skipped update, zero gradients)."""
+    import torch
+    from repro_torch.checkpoint import object_store_ckpt as ckpt
+    trainer = qs["trainer"]
+    first, _ = trainer.init_state()
+    last, _ = ckpt.restore_checkpoint(qs["store"], trainer.ckpt_prefix,
+                                      trainer.init_state()[0],
+                                      step=qs["steps"])
+    ln_f, cosine = 0.0, {}
+    for (name, w0), (_, w1) in zip(first.named_parameters(),
+                                   last.named_parameters()):
+        delta = (w1.float() - w0.float()).flatten()
+        if name == "top.ln_f":
+            ln_f = float(delta.abs().max())
+        elif w0.ndim > 1:
+            cosine[name] = float(torch.nn.functional.cosine_similarity(
+                delta, -w0.float().flatten(), dim=0))
+    out = {"ln_f_max_abs_change": ln_f,
+           "max_decay_cosine": max(cosine.values()),
+           "matrices": len(cosine)}
+    if not (ln_f > QUICKSTART_MOVED
+            and out["max_decay_cosine"] < QUICKSTART_DECAY_COSINE):
+        raise AssertionError(f"examples: quickstart's weights did not "
+                             f"train: {out}")
+    return out
+
+
+def check_flash_examples(rec, fma_launches: int) -> list:
+    """Flash attention on every input shape ``serverless_serving``'s
+    steps gave it (float32 at head dim 16: the CUDA-core route), against
+    the plain version within F32_ATTN_TOL (BF16_TOL for bf16); with the
+    CUDA-core route's row of the kernels line, timed on the largest call's
+    inputs, where that route launched."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    errs = {}
+    for (q, k, v), kw in rec.shapes.values():
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = F32_ATTN_TOL if q.dtype == torch.float32 else BF16_TOL
+        errs[str(tuple(q.shape))] = within(got, want, tol)
+    if not fma_launches:
+        return []
+    (q, k, v), kw = rec.args
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if fa._route(q.dtype, d) != "fma":
+        raise AssertionError(f"serverless_serving's largest flash call "
+                             f"{tuple(q.shape)} {q.dtype}: not the "
+                             "CUDA-core route's")
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                      window=window)
+    plain = lambda: fa.flash_attention_plain(  # noqa: E731
+        q, k, v, causal=causal, window=window)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = {"is_causal": causal}
+    if window:
+        qp = torch.arange(sq, device=DEVICE)[:, None]
+        kp = torch.arange(skv, device=DEVICE)[None, :]
+        mask = {"attn_mask": (kp <= qp) & (kp > qp - window)}
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, enable_gqa=True, **mask)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = within(got, want, F32_ATTN_TOL)
+    pairs = band_pairs(sq, skv, causal, window)
+    flops = 4.0 * b * h * d * pairs
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) \
+        * q.element_size()
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S * 1e3, bound_ms(nbytes)
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:22",
+           "launches": fma_launches, "max_abs_err": err,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           **kernel_times(kern, plain, lib)}
+    log("kernel", **row, case="serverless_serving", shape=[b, sq, h, d],
+        kv_heads=k.shape[2], dtype=str(q.dtype), causal=causal,
+        window=window, kernel_route="fma", f32_tol=F32_ATTN_TOL,
+        max_abs_err_by_shape=errs)
+    return [{key: row[key] for key in ROW_KEYS}]
+
+
+def run_examples() -> tuple:
+    """Phase ``examples``: each of the six examples' ``main()`` at its
+    defaults on the card (the launch counts at 0 just before, read just
+    after); the query examples' results held against the numpy backend;
+    the training examples' outcomes checked; flash attention held against
+    its plain version on ``serverless_serving``'s inputs. Returns the
+    launches (flash attention's: the tensor-core route's) and the
+    CUDA-core flash route's row of the kernels line."""
+    import math
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.engine import Coordinator, datagen, queries
+    from repro_torch.examples import (concurrent_serving_quickstart,
+                                      cost_planner, elastic_training,
+                                      logical_api_quickstart, quickstart,
+                                      serverless_serving)
+    from repro_torch.kernels import flash_attention as fa
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cost_planner.main([])
+    walls = {"cost_planner": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    lq = logical_api_quickstart.main([])
+    walls["logical_api_quickstart"] = time.perf_counter() - t0
+    check_result("revenue_by_shipmode", lq["torch"].result,
+                 lq["numpy"].result, keys=["l_shipmode"])
+    ref = Coordinator(lq["store"], backend="numpy")
+    ref.register_table("lineitem", lq["hashed_keys"])
+    check_result("revenue_by_order", lq["elided"].result,
+                 ref.run(lq["per_order"], query_id="elided-numpy").result,
+                 keys=["l_orderkey"])
+
+    t0 = time.perf_counter()
+    cs = concurrent_serving_quickstart.main([])
+    walls["concurrent_serving_quickstart"] = time.perf_counter() - t0
+    ref = Coordinator(cs["store"], backend="numpy")
+    for t, k in cs["tables"].items():
+        ref.register_table(t, k)
+    base = datagen.DATE_1994_01_01
+    for mode in ("serial", "interleaved"):
+        report = cs[mode]
+        if report.failures or len(report.queries) != \
+                concurrent_serving_quickstart.N_QUERIES:
+            raise AssertionError(f"examples: {mode} serving failed")
+        for i, served in enumerate(report.queries):
+            want = ref.run(queries.q12_logical(year_lo=base + 30 * i),
+                           query_id=f"cs-{mode}-{i}").result
+            check_result("q12", served.result.result, want)
+    if cs["replay"].result_cache_hits != 1 or \
+            cs["rerun"].result_cache_hits != 0:
+        raise AssertionError("examples: the result cache did not replay "
+                             "and then invalidate")
+
+    t0 = time.perf_counter()
+    qs = quickstart.main([])
+    walls["quickstart"] = time.perf_counter() - t0
+    losses = [m["loss"] for m in qs["metrics"]]
+    floor = math.log(ARCHS["internlm2-1.8b"].reduced().vocab_size)
+    if qs["status"] != "done" or len(losses) != 6 or \
+            not all(math.isfinite(x) for x in losses) or \
+            abs(losses[-1] - floor) > QUICKSTART_LOSS_SLACK or \
+            len(qs["manifests"]) != 6:
+        raise AssertionError(f"examples: quickstart {qs['status']}, "
+                             f"losses {losses} (floor {floor}), "
+                             f"manifests {qs['manifests']}")
+    moved = quickstart_moved(qs)
+
+    t0 = time.perf_counter()
+    el = elastic_training.main([])
+    walls["elastic_training"] = time.perf_counter() - t0
+    steps = [m["step"] for m in el["phase2"]["metrics"]]
+    if el["phase1"]["resumable_from"] != 10 or \
+            el["phase2"]["status"] != "done" or steps != [12, 14, 16, 18,
+                                                          20]:
+        raise AssertionError(f"examples: elastic_training did not resume "
+                             f"from step 10 and complete: {el}")
+
+    rec = Recorder(fa, "flash_attention", lambda a: a[0].numel(),
+                   by_shape=True)
+    try:
+        t0 = time.perf_counter()
+        sv = serverless_serving.main([])
+        walls["serverless_serving"] = time.perf_counter() - t0
+    finally:
+        rec.restore()
+    torch.cuda.synchronize()
+    launches, routes = launch_counts(), route_counts()
+    done = sv["done"]
+    if sorted(r.request_id for r in done) != list(range(10)) or any(
+            r.completion.shape != (8,) or r.completion.max()
+            >= sv["vocab_size"] or r.completion.min() < 0 for r in done):
+        raise AssertionError("examples: serverless_serving did not answer "
+                             "10 requests of 8 tokens")
+    # The logical Q12's join tail derives an integer column from a
+    # column it reads, which the device would narrow to int32: it runs
+    # interpreted, as the reference's jit does, so the probe may not
+    # launch here (recorded).
+    require_launches("examples", launches, ("segment_reduce",
+                                            "flash_attention"))
+    fma = launches["flash_attention"] - routes["flash_attention_tc"]
+    launches["flash_attention"] -= fma
+    log("examples", walls_s=walls, launches=launches,
+        flash_attention_fma_launches=fma, quickstart_losses=losses,
+        quickstart_entropy_floor=floor, quickstart_moved=moved,
+        elastic_phase2_steps=steps, elastic_ranks=el["ranks"],
+        serving_cost=sv["cost"])
+    return launches, check_flash_examples(rec, fma)
 
 
 # ---------------------------------------------------------------------------
@@ -3601,6 +3936,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    started = time.perf_counter()
     t0 = time.perf_counter()
     report = kbuild.build_all()
     regs = [ln.strip() for r in report.values() for ln in r["log"].splitlines()
@@ -3616,7 +3952,7 @@ def main() -> int:
         name=torch.cuda.get_device_name(0), nvidia_smi=smi)
 
     kernels, failures = [], []
-    if {"queries", "query_serving", "adaptive"} & set(PHASES):
+    if set(QUERY_PHASES) & set(PHASES):
         t0 = time.perf_counter()
         store = ObjectStore()
         keys = {"lineitem": datagen.load_table(store, "lineitem",
@@ -3632,7 +3968,7 @@ def main() -> int:
             launches, recorded, warm_walls, wants = run_queries(store,
                                                                 keys)
             profile_queries(store, keys, warm_walls)
-        if wants is None:
+        if wants is None and {"query_serving", "adaptive"} & set(PHASES):
             wants = numpy_results(store, keys)
         # Each path's launches are counted from 0 just before it; the
         # kernel rows carry their sum.
@@ -3642,10 +3978,15 @@ def main() -> int:
         if "adaptive" in PHASES:
             for k, n in run_adaptive(store, keys, wants).items():
                 launches[k] += n
+        if "paper" in PHASES:
+            for k, n in run_paper(store, keys).items():
+                launches[k] += n
         if recorded is not None:
             kernels += check_probes(recorded, launches) \
                 + check_segment_reduce(recorded, launches)
         del store, keys, recorded, wants
+        log("elapsed", after="query phases",
+            seconds=time.perf_counter() - started)
     if "serve" in PHASES:
         for arch in SERVE_ARCHS:
             eng, reqs, launches, first = run_serving(arch)
@@ -3658,14 +3999,25 @@ def main() -> int:
             kernels += MODEL_CHECKS[arch](recorded, launches)
             del recorded
             torch.cuda.empty_cache()
+        log("elapsed", after="serve", seconds=time.perf_counter() - started)
     if "train" in PHASES:
         run_train(smi)
         run_resume(smi)
+        log("elapsed", after="train", seconds=time.perf_counter() - started)
     if "distributed" in PHASES:
         dist = run_distributed(smi)
         for row in kernels:
             if row["name"] == "gmm":
                 row["launches"] += dist["gmm"]
+        log("elapsed", after="distributed",
+            seconds=time.perf_counter() - started)
+    if "examples" in PHASES:
+        example_launches, example_rows = run_examples()
+        for row in kernels:
+            row["launches"] += example_launches[row["name"]]
+        kernels += example_rows
+        log("elapsed", after="examples",
+            seconds=time.perf_counter() - started)
 
     if failures:
         raise AssertionError("; ".join(failures))

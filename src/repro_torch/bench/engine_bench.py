@@ -29,6 +29,9 @@ backend's planner throughput (``pipeline.batch_mib`` over
 card, ``nvidia-smi``'s name and power limit. ``--section`` runs only the
 named sections and merges them into the existing file.
 ``repro_torch.bench.check_regression`` gates the file.
+``engine_data_plane`` (with ``EXPECT``, the reference's bands) is
+``repro_torch.bench.run``'s hook: every section, nothing written, as
+the reference's rows.
 """
 from __future__ import annotations
 
@@ -1224,6 +1227,101 @@ def run_sections(names, out_path: pathlib.Path = DEFAULT_OUT,
     results["config"] = config()
     out_path.write_text(json.dumps(results, indent=2) + "\n")
     return results
+
+
+def data_plane_rows(results: dict) -> list[tuple]:
+    """The reference's ``engine_data_plane`` rows, by name and order,
+    from the port's sections: its ``*_jit_*`` rows read the sections'
+    ``torch_s`` and ``torch_mrows_s``."""
+    sh, pp, sd = results["shuffle"], results["pipeline"], results["serde"]
+    jp, pl = results["join_pipeline"], results["planning"]
+    dk, pf = results["dup_key_join"], results["partition_fusion"]
+    se = results["shuffle_elision"]
+    cs = results["concurrent_serving"]
+    te = results["tiered_exchange"]
+    ac = results["adaptive_chaos"]
+    oc = results["out_of_core"]
+    fr = results["fault_recovery"]
+    return [
+        ("engine/fault_recovery_p99_speedup", 0.0, fr["p99_speedup"]),
+        ("engine/fault_recovery_mean_speedup", 0.0, fr["mean_speedup"]),
+        ("engine/ooc_join_mem_reduction_speedup", 0.0,
+         oc["join_mem_reduction_speedup"]),
+        ("engine/ooc_agg_mem_reduction_speedup", 0.0,
+         oc["agg_mem_reduction_speedup"]),
+        ("engine/ooc_join_spill_slowdown", 0.0, oc["join_spill_slowdown"]),
+        ("engine/ooc_agg_spill_slowdown", 0.0, oc["agg_spill_slowdown"]),
+        ("engine/ooc_capped_join_mrows_s", oc["join_capped_s"] * 1e6,
+         oc["join_capped_mrows_s"]),
+        ("engine/ooc_capped_agg_mrows_s", oc["agg_capped_s"] * 1e6,
+         oc["agg_capped_mrows_s"]),
+        ("engine/adaptive_chaos_p99_speedup", 0.0, ac["p99_speedup"]),
+        ("engine/adaptive_chaos_mean_speedup", 0.0, ac["mean_speedup"]),
+        ("engine/tiered_exchange_speedup", 0.0, te["speedup"]),
+        ("engine/tiered_exchange_cost_vs_all_kv_speedup", 0.0,
+         te["cost_vs_all_kv_speedup"]),
+        ("engine/concurrent_serving_speedup", 0.0, cs["speedup"]),
+        ("engine/concurrent_serving_hit_rate", 0.0,
+         cs["plan_cache_hit_rate"]),
+        ("engine/shuffle_elision_speedup", 0.0, se["speedup"]),
+        ("engine/shuffle_elision_cost_ratio", 0.0, se["cost_ratio"]),
+        ("engine/dup_key_join_speedup", 0.0, dk["speedup"]),
+        ("engine/partition_fusion_speedup", 0.0, pf["speedup"]),
+        ("engine/frame_deser_speedup", 0.0, sd["deser_speedup"]),
+        ("engine/shuffle_seed_mib_s", sh["seed_s"] * 1e6, sh["seed_mib_s"]),
+        ("engine/shuffle_radix_mib_s", sh["radix_s"] * 1e6,
+         sh["radix_mib_s"]),
+        ("engine/shuffle_speedup", 0.0, sh["speedup"]),
+        ("engine/pipeline_numpy_mrows_s", pp["numpy_s"] * 1e6,
+         pp["numpy_mrows_s"]),
+        ("engine/pipeline_jit_mrows_s", pp["torch_s"] * 1e6,
+         pp["torch_mrows_s"]),
+        ("engine/fused_pipeline_speedup", 0.0, pp["speedup"]),
+        ("engine/join_numpy_mrows_s", jp["numpy_s"] * 1e6,
+         jp["numpy_mrows_s"]),
+        ("engine/join_jit_mrows_s", jp["torch_s"] * 1e6,
+         jp["torch_mrows_s"]),
+        ("engine/fused_join_pipeline_speedup", 0.0, jp["speedup"]),
+        ("engine/planning_q12_lower_us", pl["q12_lower_s"] * 1e6,
+         pl["q12_lower_s"] * 1e6),
+        ("engine/planning_overhead_frac", pl["q12_lower_s"] * 1e6,
+         pl["overhead_frac"]),
+    ]
+
+
+def engine_data_plane(device: str = "cuda") -> list[tuple]:
+    """``repro_torch.bench.run``'s hook: every section run with the torch
+    backend on ``device`` (nothing written), as the reference's rows."""
+    return data_plane_rows({name: fn(device)
+                            for name, fn in SECTIONS.items()})
+
+
+# The reference's bands (``benchmarks/engine_bench.py``), unchanged.
+EXPECT = {
+    "engine/shuffle_speedup": (3.0, 1000.0),
+    "engine/fused_pipeline_speedup": (1.2, 1000.0),
+    "engine/fused_join_pipeline_speedup": (1.5, 1000.0),
+    "engine/dup_key_join_speedup": (1.0, 1000.0),
+    "engine/partition_fusion_speedup": (1.0, 1000.0),
+    "engine/shuffle_elision_speedup": (1.5, 1000.0),
+    "engine/shuffle_elision_cost_ratio": (1.0, 1000.0),
+    "engine/concurrent_serving_speedup": (1.5, 1000.0),
+    "engine/concurrent_serving_hit_rate": ((SERVING_N_QUERIES - 1)
+                                           / SERVING_N_QUERIES, 1.0),
+    "engine/planning_overhead_frac": (0.0, 0.01),
+    "engine/tiered_exchange_speedup": (1.2, 1000.0),
+    "engine/tiered_exchange_cost_vs_all_kv_speedup": (1.25, 1000.0),
+    "engine/adaptive_chaos_p99_speedup": (1.3, 1000.0),
+    "engine/adaptive_chaos_mean_speedup": (1.0, 1000.0),
+    "engine/ooc_join_mem_reduction_speedup": (1.5, 1000.0),
+    "engine/ooc_agg_mem_reduction_speedup": (1.5, 1000.0),
+    "engine/ooc_join_spill_slowdown": (0.0, 4.0),
+    "engine/ooc_agg_spill_slowdown": (0.0, 4.0),
+    "engine/fault_recovery_p99_speedup": (1.05, 1000.0),
+    "engine/fault_recovery_mean_speedup": (1.0, 1000.0),
+}
+
+ALL = [engine_data_plane]
 
 
 def main(argv=None) -> None:

@@ -8,8 +8,8 @@ Two profiles are read, never written:
   (``tiered_exchange``, ``shuffle``): ``REPRO_BENCH_PROFILE``, then the
   current directory, then the repository root, in the reference's order;
 - ``BENCH_engine_torch.json`` for the ``torch`` backend, whose data plane
-  runs on the GPU (no bench harness writes it yet, so its fallbacks
-  apply), looked up in the same places.
+  runs on the GPU (``python -m repro_torch.bench.engine_bench`` writes
+  it on the card), looked up in the same places.
 
 The coordinator's fragment-duration model and the burst planner prefer
 those measurements over the hand-set ``CPU_BYTES_PER_S_BY_BACKEND``

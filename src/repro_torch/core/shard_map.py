@@ -581,25 +581,29 @@ class _GatherParam(torch.autograd.Function):
 
 
 def gather_param(p, mesh, *, keep: Sequence[str] = (),
-                 model: str = "mean"):
+                 model: str = "mean", split: Sequence[str] | None = None):
     """The tensor a rank computes with from a sharded parameter ``p`` (a
     DTensor): gathered over every axis but those in ``keep``. Its
-    gradient comes back as ``p``'s shard: summed over the batch axes
-    (each rank's batch shard adds its part) and over ``"model"``, where
-    ``model="sum"`` (the ranks worked on different tokens) or averaged
-    there, ``model="mean"`` (every model rank computed the same part; the
-    mean keeps replicas equal where their arithmetic was not bit-equal).
-    A plain tensor is returned as it is."""
+    gradient comes back as ``p``'s shard: summed over the axes the batch
+    is split on (``split``, every batch axis of the mesh by default: each
+    rank's rows add their part), averaged over the batch axes it is kept
+    whole on (those ranks hold the same rows), and, where the batch is
+    not split on ``"model"``,
+    summed there for ``model="sum"`` (the ranks worked on different
+    tokens) or averaged for ``model="mean"`` (every model rank computed
+    the same part; the mean keeps replicas equal where their arithmetic
+    was not bit-equal). A plain tensor is returned as it is."""
     if not isinstance(p, DTensor):
         return p
     names = axis_names(mesh)
-    grad_sum = tuple(a for a in names if a in DP_AXES)
-    grad_mean = ()
-    if "model" in names:
+    split = dp_axes(mesh) if split is None else tuple(split)
+    grad_sum = tuple(a for a in names if a in split)
+    grad_mean = tuple(a for a in dp_axes(mesh) if a not in split)
+    if "model" in names and "model" not in split:
         if model == "sum":
             grad_sum += ("model",)
         elif model == "mean":
-            grad_mean = ("model",)
+            grad_mean += ("model",)
         else:
             raise ValueError(f"model={model!r}: 'sum' or 'mean'")
     return _GatherParam.apply(p.to_local(), spec_of(p), mesh, tuple(keep),

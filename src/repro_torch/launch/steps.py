@@ -6,12 +6,14 @@ shardings. The port runs eagerly: each factory returns a plain closure.
 Without a mesh it runs on the model's one device. With ``mesh`` (a
 ``DeviceMesh`` with the reference's axis names) every rank calls the
 step with the whole global batch; the step keeps the rank's rows over
-the batch axes ``(pod, data)``, pod-major as the reference's
-``NamedSharding`` lays them out, and the model's parameters are DTensors
-placed by ``sharding.rules`` (``model_shardings``). The serving steps run
-under ``torch.inference_mode()`` and return the rank's rows of the
-logits and its caches; the train step differentiates ``forward_train``
-with autograd and updates the model in place, on every rank.
+the axes ``batch_shardings`` puts the batch on (``(pod, data)`` where
+the batch divides them, else ``data``, else none), pod-major as the
+reference's ``NamedSharding`` lays them out, and the model's parameters
+are DTensors placed by ``sharding.rules`` (``model_shardings``). The
+serving steps run under ``torch.inference_mode()`` and return the rank's
+rows of the logits and its caches; the train step differentiates
+``forward_train`` with autograd and updates the model in place, on every
+rank.
 """
 from __future__ import annotations
 
@@ -146,25 +148,45 @@ def _batch_size(batch: dict) -> int:
     return batch[key].shape[0]
 
 
-def local_rows(batch: dict, mesh) -> dict:
-    """The rank's rows of a global batch over the batch axes (pod-major;
-    axis 1 of ``mrope_positions``). The global batch must split evenly
-    over every batch axis of the mesh."""
-    n = sm.dp_size(mesh)
+def batch_axes(cfg: ArchConfig, mesh, kind: str, batch: int,
+               act_rules: Optional[dict] = None) -> tuple:
+    """The mesh axes a step's batch of ``batch`` rows is split over, in
+    its layout's order: the batch entry of ``batch_shardings`` (the
+    ``act_rules`` batch axes where they divide it, else ``dp_axes_for``);
+    ``()`` where the batch is kept whole."""
+    spec = batch_shardings(cfg, mesh, kind, batch, act_rules)
+    entry = spec["embeds" if "embeds" in spec else "tokens"][0]
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def local_rows(batch: dict, mesh, axes: tuple) -> dict:
+    """The rank's rows of a global batch split over ``axes`` (as
+    ``batch_axes`` gives them, the first axis outermost: pod-major; axis 1
+    of ``mrope_positions``); the whole batch where ``axes`` is empty."""
+    if not axes:
+        return batch
+    n, i = 1, 0
+    for a in axes:
+        size = sm.axis_size(mesh, a)
+        n *= size
+        i = i * size + sm.axis_index(mesh, a)
     b = _batch_size(batch)
     if b % n:
-        raise ValueError(f"global batch {b} does not split over the "
-                         f"{n} ranks of {sm.dp_axes(mesh)}")
-    i = sm.dp_index(mesh)
+        raise ValueError(f"batch {b} does not split over the {n} ranks "
+                         f"of {axes}")
     return {k: v.narrow(1 if k == "mrope_positions" else 0,
                         i * (b // n), b // n)
             for k, v in batch.items()}
 
 
 @contextlib.contextmanager
-def _activation_rules(rules, mesh, batch: int):
-    """The activation rules installed for one step call."""
-    common.set_activation_rules(rules, mesh, batch)
+def _activation_rules(rules, mesh, batch: int, axes: tuple):
+    """The activation rules and the batch's split installed for one step
+    call: the model's constraints, losses and gradient reductions read
+    them."""
+    common.set_activation_rules(rules, mesh, batch, axes)
     try:
         yield
     finally:
@@ -192,12 +214,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig,
 
     With ``mesh`` every rank passes the whole global batch: each
     microbatch (consecutive rows, as the reference's reshape splits them)
-    is cut to the rank's rows over ``(pod, data)``, and ``metrics`` are
-    the global ones on every rank. ``rules`` (``PARAM_RULES`` by
-    default) is checked against the model's layout at the first call,
-    ``act_rules`` places the activations (``rules.activation_rules(mesh)``
-    by default); ``global_batch``, when given, is checked against the
-    batch."""
+    is cut to the rank's rows over the axes ``batch_axes`` gives for the
+    microbatch's rows (gradients and the loss are summed over those axes
+    and averaged over the batch axes the rows are kept whole on), and
+    ``metrics`` are the global ones on every rank. ``rules``
+    (``PARAM_RULES`` by default) is checked against the model's layout at
+    the first call, ``act_rules`` places the activations
+    (``rules.activation_rules(mesh)`` by default); ``global_batch``, when
+    given, is checked against the batch."""
     if impl not in ("reference", "blocked"):
         raise ValueError(f"impl {impl!r} runs forward-only kernels; train "
                          "with 'reference' or 'blocked'")
@@ -221,12 +245,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig,
                                     materialize_grads=True)
         return loss.detach(), [sm.to_local(g) for g in grads]
 
-    def run(model, names, params, batch):
+    def run(model, names, params, batch, axes):
         mbs = _split_microbatches(batch, micro) if micro > 1 else [batch]
         acc, loss_sum = None, 0.0
         for mb in mbs:
             if mesh is not None:
-                mb = local_rows(mb, mesh)
+                mb = local_rows(mb, mesh, axes)
             loss, grads = loss_and_grads(model, params, mb)
             if micro == 1:
                 return loss, grads
@@ -249,11 +273,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig,
         if mesh is not None and not checked:
             check_layout(model)
         if mesh is None:
-            loss, grads = run(model, names, params, batch)
+            loss, grads = run(model, names, params, batch, ())
         else:
-            with _activation_rules(act_rules, mesh,
-                                  _batch_size(batch) // micro):
-                loss, grads = run(model, names, params, batch)
+            rows = _batch_size(batch) // micro
+            axes = batch_axes(cfg, mesh, "train", rows, act_rules)
+            with _activation_rules(act_rules, mesh, rows, axes):
+                loss, grads = run(model, names, params, batch, axes)
             grads = [sm.make_dtensor(g, sm.spec_of(p), mesh, p.shape)
                      for g, p in zip(grads, params)]
         _, opt_state, metrics = opt_mod.apply_updates(
@@ -281,9 +306,11 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int,
             if mesh is None:
                 return tfm.forward_prefill(model, cfg, batch, cache_len,
                                            impl=impl)
-            with _activation_rules(act_rules, mesh, _batch_size(batch)):
+            rows = _batch_size(batch)
+            axes = batch_axes(cfg, mesh, "prefill", rows, act_rules)
+            with _activation_rules(act_rules, mesh, rows, axes):
                 return tfm.forward_prefill(model, cfg,
-                                           local_rows(batch, mesh),
+                                           local_rows(batch, mesh, axes),
                                            cache_len, impl=impl, mesh=mesh)
 
     return prefill_step
@@ -293,9 +320,12 @@ def make_decode_step(cfg: ArchConfig, batch_size: int, *, mesh=None):
     """``decode_step(model, tokens (B, 1), caches, position) -> (logits,
     caches)``; the attention caches are updated in place. Under ``mesh``
     the tokens are the global batch's, the caches and the logits the
-    rank's rows."""
-    act_rules = shrules.activation_rules(mesh) if mesh is not None \
-        else None
+    rank's rows, split over the axes in ``decode_step.batch_axes``
+    (``()`` without a mesh)."""
+    axes = ()
+    if mesh is not None:
+        act_rules = shrules.activation_rules(mesh)
+        axes = batch_axes(cfg, mesh, "decode", batch_size, act_rules)
 
     def decode_step(model, tokens, caches, position: int):
         if tokens.shape[0] != batch_size:
@@ -305,9 +335,10 @@ def make_decode_step(cfg: ArchConfig, batch_size: int, *, mesh=None):
             if mesh is None:
                 return tfm.forward_decode(model, cfg, tokens, caches,
                                           position)
-            with _activation_rules(act_rules, mesh, batch_size):
+            with _activation_rules(act_rules, mesh, batch_size, axes):
                 return tfm.forward_decode(
-                    model, cfg, local_rows({"tokens": tokens}, mesh)[
+                    model, cfg, local_rows({"tokens": tokens}, mesh, axes)[
                         "tokens"], caches, position, mesh=mesh)
 
+    decode_step.batch_axes = axes
     return decode_step

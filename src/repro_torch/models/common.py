@@ -112,44 +112,58 @@ def embed_init(gen, shape, axes) -> Param:
 # ---------------------------------------------------------------------------
 
 _ACTIVATION_RULES: dict = {}
-_ACTIVE: dict = {"mesh": None, "batch": 0}
+_ACTIVE: dict = {"mesh": None, "batch": 0, "split": None}
 
 
-def set_activation_rules(rules: dict, mesh=None, batch: int = 0) -> None:
-    """Install logical->mesh axis rules, the mesh and the global batch
-    for activation constraints (the step builders call it)."""
+def set_activation_rules(rules: dict, mesh=None, batch: int = 0,
+                         split: Optional[tuple] = None) -> None:
+    """Install logical->mesh axis rules, the mesh, the global batch and
+    the mesh axes the step split that batch over, in its layout's order
+    (the step builders call it; ``launch.steps.batch_axes`` chooses
+    ``split``)."""
     _ACTIVATION_RULES.clear()
     _ACTIVATION_RULES.update(rules)
-    _ACTIVE["mesh"] = mesh
-    _ACTIVE["batch"] = batch
+    _ACTIVE.update(mesh=mesh, batch=batch,
+                   split=None if split is None else tuple(split))
 
 
 def clear_activation_rules() -> None:
     _ACTIVATION_RULES.clear()
-    _ACTIVE["mesh"] = None
-    _ACTIVE["batch"] = 0
+    _ACTIVE.update(mesh=None, batch=0, split=None)
+
+
+def batch_split(mesh) -> tuple:
+    """The mesh axes the running step's batch is split over: what the step
+    installed, else every batch axis of the mesh."""
+    from repro_torch.core import shard_map as sm
+    split = _ACTIVE["split"]
+    return sm.dp_axes(mesh) if split is None else split
+
+
+def gather_param(p, mesh, **kwargs):
+    """``core.shard_map.gather_param`` with its gradient reduced over the
+    running step's batch split (``batch_split``)."""
+    from repro_torch.core import shard_map as sm
+    return sm.gather_param(p, mesh, split=batch_split(mesh), **kwargs)
 
 
 def shard(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
     """The reference's sharding constraint by logical axes; a no-op
     without a mesh. Under a mesh ``x`` is the rank's local tensor: its
     ``batch`` dim must hold the global batch's share of the axes the
-    rules put the batch on."""
+    step split it over (``batch_split``: the rules' batch axes where they
+    divide it, as ``launch.steps.batch_shardings`` chooses)."""
     mesh = _ACTIVE["mesh"]
     if not _ACTIVATION_RULES or mesh is None or not _ACTIVE["batch"]:
         return x
-    from repro_torch.sharding import rules as shrules
-    shape = shrules.mesh_shape(mesh)
+    from repro_torch.core import shard_map as sm
     for dim, ax in zip(x.shape, logical_axes):
         if ax != "batch":
             continue
-        names = _ACTIVATION_RULES.get("batch") or ()
-        names = names if isinstance(names, tuple) else (names,)
         size = 1
-        for a in names:
-            size *= shape.get(a, 1)
-        want = _ACTIVE["batch"] // size if _ACTIVE["batch"] % size == 0 \
-            else _ACTIVE["batch"]
+        for a in batch_split(mesh):
+            size *= sm.axis_size(mesh, a)
+        want = _ACTIVE["batch"] // size
         if dim != want:
             raise ValueError(f"activation batch dim {dim}: the rank's shard "
                              f"of batch {_ACTIVE['batch']} is {want}")

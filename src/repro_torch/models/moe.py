@@ -38,7 +38,8 @@ from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.core import shard_map as sm
 from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import ref as kref
-from repro_torch.models.common import dense_init, silu
+from repro_torch.models.common import (batch_split, dense_init,
+                                       gather_param, silu)
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -164,7 +165,7 @@ def moe_layer(params, x, cfg: ArchConfig, *, mesh=None,
     else:
         y, aux = _single(params, x, cfg, use_kernel)
     if mo.num_shared_experts:
-        sp = {k: sm.gather_param(v, mesh) if mesh is not None else v
+        sp = {k: gather_param(v, mesh) if mesh is not None else v
               for k, v in ((k, params["shared"][k])
                            for k in ("w_gate", "w_up", "w_down"))}
         gate = torch.einsum("bsd,df->bsf", x, sp["w_gate"])
@@ -212,7 +213,7 @@ def _local_experts(w, mesh):
     a DTensor gathered over every axis but ``"model"``, or the rank's
     slice of a tensor every rank holds whole."""
     if isinstance(w, sm.DTensor):
-        return sm.gather_param(w, mesh, keep=("model",))
+        return gather_param(w, mesh, keep=("model",))
     return sm.local_shard(w, ("model",), mesh)
 
 
@@ -248,11 +249,15 @@ def _moe_ep(params, x, cfg: ArchConfig, mesh, norm_topk: bool,
     tp = sm.axis_size(mesh, "model")
     if mo.num_experts % tp:
         raise ValueError(f"{mo.num_experts} experts over {tp} model ranks")
-    all_axes = sm.axis_names(mesh)
+    split = batch_split(mesh)
+    if "model" in split:
+        raise ValueError("the MoE's expert-parallel path splits tokens over "
+                         "'model' itself; a batch already split over "
+                         "'model' is not supported (ROADMAP C.6)")
     b, s, d = x.shape
     # Each model rank routes other tokens: the router's gradient is the
     # sum of the ranks' parts.
-    wr = sm.gather_param(params["w_router"], mesh, model="sum")
+    wr = gather_param(params["w_router"], mesh, model="sum")
     experts = {k: _local_experts(params[k], mesh)
                for k in ("w_gate", "w_up", "w_down")}
 
@@ -284,5 +289,12 @@ def _moe_ep(params, x, cfg: ArchConfig, mesh, norm_topk: bool,
         y = _combine(yb_loc, torch.where(in_range, slot - lo, 0),
                      keep & in_range, gates, torch.float32)
         y = sm.reduce_out(y, mesh, ("model",)).to(x.dtype).reshape(b, s, d)
-    aux = sm.reduce_out(aux, mesh, all_axes) / sm.mesh_size(mesh)
+    # The mean of the distinct shards' terms: ranks that hold the same
+    # rows add theirs once.
+    same = tuple(a for a in sm.dp_axes(mesh) if a not in split)
+    axes = tuple(a for a in sm.axis_names(mesh) if a not in same)
+    shards = sm.mesh_size(mesh)
+    for a in same:
+        shards //= sm.axis_size(mesh, a)
+    aux = sm.reduce_out(aux, mesh, axes) / shards
     return y, aux

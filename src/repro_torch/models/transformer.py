@@ -13,7 +13,7 @@ list with one entry per layer (``KVCache``, ``RwkvState`` or
 DTensors placed by ``sharding.rules`` (``init_model(mesh=...)``,
 ``convert.from_reference(mesh=...)``), the batch and the caches are the
 rank's batch shard over ``(pod, data)``, every layer gathers its dense
-weights where it uses them (``core.shard_map.gather_param``) and the MoE
+weights where it uses them (``common.gather_param``) and the MoE
 layers run the expert-parallel path. The ranks of ``"model"`` compute
 the dense layers of their batch shard whole: the reference's activation
 tensor parallelism (``ACT_RULES`` on heads, ff and vocab) is not ported.
@@ -50,8 +50,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (Params, embed_init, ones_init,
-                                       rms_norm, shard, split_tree)
+from repro_torch.models.common import (Params, batch_split, embed_init,
+                                       gather_param, ones_init, rms_norm,
+                                       shard, split_tree)
 from repro_torch.sharding import rules as shrules
 
 PORTED_KINDS = ("attn", "local", "moe", "dense0", "rwkv", "rec")
@@ -159,17 +160,21 @@ def _cast(tree: dict, dtype) -> dict:
             for k, v in tree.items()}
 
 
-def _param_trees(cfg: ArchConfig, gen):
-    """("top", tree), then (layer index, kind, tree) per layer in
-    execution order: ``Param`` trees, drawn in the order of the
-    reference's draws."""
+def _init_top(gen, cfg: ArchConfig) -> dict:
     top = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model),
                                ("vocab", "embed_table")),
            "ln_f": ones_init(gen, (cfg.d_model,), ("embed",))}
     if not cfg.tie_embeddings:
         top["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
                                     ("embed", "vocab"))
-    yield None, "top", top
+    return top
+
+
+def _param_trees(cfg: ArchConfig, gen):
+    """("top", tree), then (layer index, kind, tree) per layer in
+    execution order: ``Param`` trees, drawn in the order of the
+    reference's draws. The generator keeps no tree it has yielded."""
+    yield None, "top", _init_top(gen, cfg)
     for i, kind in enumerate(layer_kinds(cfg)):
         yield i, kind, _init_sublayer(gen, kind, cfg)
 
@@ -234,6 +239,9 @@ def init_model(cfg: ArchConfig, gen: torch.Generator,
     top, layers = None, []
     for i, kind, tree in _param_trees(cfg, gen):
         values, axes = split_tree(tree)
+        # Each tree's float32 draws are freed before the next tree is
+        # drawn: at most one layer (or the embeddings) exists in float32.
+        del tree
         if dtype is not None:
             values = _cast(values, dtype)
         if mesh is not None:
@@ -255,9 +263,9 @@ def param_count(model: Model) -> int:
 
 def gathered(p: Params, mesh) -> dict:
     """A parameter group as nested dicts of the tensors a rank computes
-    with: each DTensor gathered whole (``core.shard_map.gather_param``)."""
+    with: each DTensor gathered whole (``common.gather_param``)."""
     return {k: gathered(p[k], mesh) if isinstance(p[k], Params)
-            else sm.gather_param(p[k], mesh) for k in p._keys}
+            else gather_param(p[k], mesh) for k in p._keys}
 
 
 def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
@@ -271,7 +279,7 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
     if mesh is not None:
         p = {k: p[k] if (kind == "moe" and k == "ffn")
              else gathered(p[k], mesh) if isinstance(p[k], Params)
-             else sm.gather_param(p[k], mesh) for k in p._keys}
+             else gather_param(p[k], mesh) for k in p._keys}
     aux = None
     window = cfg.window if kind == "local" else 0
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -366,7 +374,7 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
 
 def _top(model: Model, name: str, mesh):
     w = model[name]
-    return sm.gather_param(w, mesh) if mesh is not None else w
+    return gather_param(w, mesh) if mesh is not None else w
 
 
 def _embed_inputs(model: Model, cfg: ArchConfig, batch: dict, mesh=None):
@@ -408,13 +416,15 @@ def _train_unit(layers, cfg: ArchConfig, impl: str, x, aux, positions,
 
 def masked_mean(nll, mask, mesh=None):
     """Sum(nll * mask) / sum(mask) over the global batch: under a mesh
-    both sums are reduced over the batch axes before the division (a
-    mean of per-shard means is wrong where the shards' masks differ)."""
+    both sums are reduced over the axes the batch is split on before the
+    division (a mean of per-shard means is wrong where the shards' masks
+    differ; ranks holding the same rows are counted once)."""
     num = torch.sum(nll * mask)
     den = torch.sum(mask).detach()
     if mesh is not None:
-        num = sm.reduce_out(num, mesh, sm.dp_axes(mesh))
-        for a in sm.dp_axes(mesh):
+        axes = batch_split(mesh)
+        num = sm.reduce_out(num, mesh, axes)
+        for a in axes:
             den = sm.all_reduce(den, mesh, a)
     return num / den.clamp_min(1.0)
 

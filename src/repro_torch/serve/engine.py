@@ -14,9 +14,10 @@ logits, all slots decode in lockstep from position ``max_prompt``, and
 for the mesh's chips (one without a mesh).
 
 On a mesh every rank runs the engine on the same requests: the steps keep
-the rank's prompts over the batch axes ``(pod, data)``, and each step's
-new tokens are all-gathered over those axes, so every rank returns the
-same completions.
+the rank's prompts over the axes they split the batch on (``(pod,
+data)``, or ``data``, or none where the batch does not divide them), and
+each step's new tokens are all-gathered over those axes, so every rank
+returns the same completions.
 """
 from __future__ import annotations
 
@@ -75,14 +76,18 @@ class ServingEngine:
             cfg, cache_len=max_len, impl=impl, mesh=mesh)
         self.decode = step_factory.make_decode_step(cfg, batch_size,
                                                     mesh=mesh)
+        # The axes the steps split the batch over, as the decode step
+        # chose them (``()`` without a mesh).
+        self.batch_axes = self.decode.batch_axes
         self.step_count = 0
 
     def _next_tokens(self, logits) -> torch.Tensor:
         """Greedy tokens of the whole batch (under a mesh, the ranks'
-        rows all-gathered over the batch axes, pod-major)."""
+        rows all-gathered over the axes the steps split the batch on,
+        pod-major)."""
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         if self.mesh is not None:
-            for axis in reversed(sm.dp_axes(self.mesh)):
+            for axis in reversed(self.batch_axes):
                 tok = sm.gather(tok, 0, self.mesh, axis)
         return tok
 

@@ -172,6 +172,76 @@ def test_batch_shardings_match_reference(arch, kind):
         jsteps.NamedSharding = saved
 
 
+FSDP_ACT = {"batch": ("data", "model"), "seq": None, "embed": None,
+            "ff": None, "heads": None, "kv_heads": None, "vocab": None,
+            None: None}
+
+
+@pytest.mark.parametrize("act", ["none", "rules", "fsdp"])
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_local_rows_split_follows_batch_shardings(mesh, act):
+    """The axes a step cuts its rows over (``steps.batch_axes``) are the
+    batch entry of the reference's ``batch_shardings``, for batches that
+    divide (pod, data), only data, or neither, under the default rules,
+    the mesh's activation rules and the hillclimb's FSDP rules (batch on
+    ``("data", "model")``); ``local_rows`` splits over exactly those axes
+    and keeps a batch whole where they are empty."""
+    m = fake_mesh(mesh)
+    rules = {"none": None, "rules": jrules.activation_rules(m),
+             "fsdp": FSDP_ACT}[act]
+    jcfg, tcfg = JARCHS["internlm2-1.8b"].reduced(), \
+        TARCHS["internlm2-1.8b"].reduced()
+
+    class _Named:
+        def __init__(self, mesh, spec):
+            self.spec = spec
+    saved = jsteps.NamedSharding
+    jsteps.NamedSharding = _Named
+    try:
+        for b in (1, 2, 3, 4, 8, 12, 16, 24, 64, 512):
+            for kind in ("train", "prefill", "decode"):
+                want = jsteps.batch_shardings(jcfg, m, kind, b, rules)
+                entry = want["tokens"].spec[0]
+                want_axes = () if entry is None else (
+                    entry if isinstance(entry, tuple) else (entry,))
+                assert tsteps.batch_axes(tcfg, m, kind, b, rules) == \
+                    tuple(want_axes), (b, kind)
+    finally:
+        jsteps.NamedSharding = saved
+
+
+def test_local_rows_cuts_the_split_axes_pod_major(monkeypatch):
+    """Each rank's rows of a (pod 2, data 2, model 2) mesh: over
+    ``("pod", "data")`` pod-major, over ``("data",)`` the data index
+    alone, the whole batch for ``()``; a batch that does not divide its
+    axes raises."""
+    import torch
+
+    from repro_torch.core import shard_map as tsm
+    names, _ = MESHES["2x16x16"]
+
+    class _Mesh:
+        mesh_dim_names = names
+        shape = (2, 2, 2)
+
+    coords = {"pod": 1, "data": 0, "model": 1}
+    monkeypatch.setattr(tsm, "axis_index", lambda mesh, a: coords[a])
+    batch = {"tokens": torch.arange(8)[:, None],
+             "mrope_positions": torch.arange(8)[None, :, None].expand(
+                 3, 8, 1)}
+    rows = tsteps.local_rows(batch, _Mesh(), ("pod", "data"))
+    assert rows["tokens"][:, 0].tolist() == [4, 5]
+    assert rows["mrope_positions"][0, :, 0].tolist() == [4, 5]
+    assert tsteps.local_rows(batch, _Mesh(), ("data",))["tokens"][
+        :, 0].tolist() == [0, 1, 2, 3]
+    assert tsteps.local_rows(batch, _Mesh(), ("data", "model"))["tokens"][
+        :, 0].tolist() == [2, 3]
+    assert tsteps.local_rows(batch, _Mesh(), ()) is batch
+    with pytest.raises(ValueError):
+        tsteps.local_rows({"tokens": torch.arange(6)[:, None]}, _Mesh(),
+                          ("pod", "data"))
+
+
 def test_cache_shardings_follow_reference():
     """The port's per-layer caches get the reference's stacked layout
     without its layers entry."""

@@ -41,18 +41,26 @@ LEAF_TOL = 1e-4
 OPT = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=1, moment_dtype="float32")
 
 
-def cfg_of(name):
+# Batches the (pod, data) axes do not divide (ROADMAP C.2): batch 1 on
+# (data 2, model 2) is kept whole on every rank, batch 2 on (pod 2,
+# data 2) is split over data alone. Each runs one microbatch; the MoE's
+# oracle routes the distinct shards (dp) of tp sequence slices each.
+FALLBACKS = {"b1-data2-model2": ((2, 2, 0), 1, 1, 2),
+             "b2-pod2-data2": ((2, 1, 2), 2, 2, 1)}
+
+
+def cfg_of(name, micro=2):
     cfg = ARCHS[name].reduced()
     if cfg.moe:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=16.0))
-    return dataclasses.replace(cfg, microbatches=2)
+    return dataclasses.replace(cfg, microbatches=micro)
 
 
-def batch_of(cfg, step, ragged=False):
+def batch_of(cfg, step, ragged=False, b=B):
     rng = np.random.default_rng(step)
     toks = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int64))
+        rng.integers(0, cfg.vocab_size, (b, S + 1)).astype(np.int64))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     if ragged:
         # Rows of the first shard of each microbatch keep every token,
@@ -70,25 +78,26 @@ def _model(cfg, mesh=None):
     return tfm.init_model(cfg, gen, dtype=cfg.activation_dtype, mesh=mesh)
 
 
-def _train(cfg, mesh, ragged=False, steps_n=STEPS):
+def _train(cfg, mesh, ragged=False, steps_n=STEPS, b=B):
     model = _model(cfg, mesh)
     opt = opt_mod.init_opt_state(model, OPT)
     step = steps.make_train_step(cfg, OPT, mesh=mesh)
     metrics = []
     for i in range(steps_n):
-        opt, m = step(model, opt, batch_of(cfg, i, ragged))
+        opt, m = step(model, opt, batch_of(cfg, i, ragged, b))
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
     return metrics, convert.to_reference(cfg, model), \
         convert.to_reference(cfg, opt.mu)
 
 
-def one_device(name, dp=2, tp=2, ragged=False, steps_n=STEPS):
-    cfg = cfg_of(name)
+def one_device(name, dp=2, tp=2, ragged=False, steps_n=STEPS, b=B,
+               micro=2):
+    cfg = cfg_of(name, micro)
     saved = moe_mod.moe_layer
     if cfg.moe:
         moe_mod.moe_layer = moe_mod.per_shard_layer(dp, tp)
     try:
-        return _train(cfg, None, ragged, steps_n)
+        return _train(cfg, None, ragged, steps_n, b)
     finally:
         moe_mod.moe_layer = saved
 
@@ -124,6 +133,11 @@ def rank_main() -> dict:
                                         device_type="cpu")
         for name in ARCH_NAMES:
             out[key, name] = _train(cfg_of(name), mesh)
+    for key, ((data, model, pod), b, _, _) in FALLBACKS.items():
+        mesh = mesh_mod.make_local_mesh(data, model, pod,
+                                        device_type="cpu")
+        for name in ARCH_NAMES:
+            out[key, name] = _train(cfg_of(name, 1), mesh, b=b)
     mesh = mesh_mod.make_local_mesh(2, 2, device_type="cpu")
     cfg = cfg_of("deepseek-moe-16b")
     saved = sm.gather
@@ -227,3 +241,24 @@ def test_ragged_masks_global_mean(results):
     _close(params, want[1], "params")
     bad = results[0]["fault_mean"][0][0][0]
     assert abs(bad - want[0][0][0]) > 1e-3 * abs(want[0][0][0])
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("case", sorted(FALLBACKS))
+def test_fallback_batch_split_equals_one_device(results, case, name):
+    """A batch the (pod, data) axes do not divide runs as the reference
+    runs it: split over data alone, or kept whole; the losses, gradient
+    norms, weights and moments are the one-device step's, and every
+    rank's replicas agree."""
+    _, b, dp, tp = FALLBACKS[case]
+    metrics, params, mu = results[0][case, name]
+    want_metrics, want_params, want_mu = one_device(name, dp, tp, b=b,
+                                                    micro=1)
+    for (l, g), (wl, wg) in zip(metrics, want_metrics):
+        assert l == pytest.approx(wl, rel=RTOL)
+        assert g == pytest.approx(wg, rel=RTOL)
+    _close(params, want_params, "params")
+    _close(mu, want_mu, "mu")
+    first = _checksum(params)
+    for r in results[1:]:
+        assert r[case, name][1] == first

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib
 import inspect
 import itertools
 import json
@@ -53,8 +54,16 @@ REPO = TESTS.parent
 _PORT_PREFIX = "repro_torch"
 
 
+# Test oracles a reference test module imports that the port does not
+# carry: the retargeted module takes the reference's own.
+_ORACLES = {"segment_reduce_np": "repro.kernels.segment_reduce"}
+
+
 def port_source(src: str) -> str:
     """A reference test module's source, retargeted at the port."""
+    for name in _ORACLES:
+        src = re.sub(rf"^(from repro\.\S+ import .+),\s*{name}\b", r"\1",
+                     src, flags=re.M)
     src = re.sub(r"\brepro\.(?=[a-z_])", _PORT_PREFIX + ".", src)
     return src.replace('"jit"', '"torch"')
 
@@ -96,11 +105,23 @@ def port_module(name: str) -> types.ModuleType:
     path = TESTS / f"{name}.py"
     mod = types.ModuleType(f"port_of_{name}")
     mod.__file__ = str(path)
-    exec(compile(port_source(path.read_text()), str(path), "exec"),
-         mod.__dict__)
+    src = path.read_text()
+    exec(compile(port_source(src), str(path), "exec"), mod.__dict__)
+    for name, ref in _ORACLES.items():
+        if re.search(rf"\b{name}\b", src):
+            setattr(mod, name,
+                    getattr(importlib.import_module(ref), name))
     if "datagen" in mod.__dict__:
         mod.datagen = _CopiedDatagen()
+    # Helper modules of the tests that build the engine's objects are
+    # retargeted too.
+    for helper in _HELPERS:
+        if helper in mod.__dict__:
+            setattr(mod, helper, port_module(helper))
     return mod
+
+
+_HELPERS = ("golden_plans",)
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +133,6 @@ class _Recorder:
     return (outermost calls only) into ``log``."""
 
     def __init__(self, pkg: str, mp: pytest.MonkeyPatch):
-        import importlib
         self.log: list = []
         self._depth = 0
         coord = importlib.import_module(f"{pkg}.engine.coordinator")
@@ -302,6 +322,12 @@ def _with_default_backend(pkg: str, backend: str, mp: pytest.MonkeyPatch):
 # The mirror
 # ---------------------------------------------------------------------------
 
+def _id(value) -> str:
+    """A case id that is the same in every process: a function by its
+    name, not by its address."""
+    return getattr(value, "__name__", None) or str(value)
+
+
 def _param_cases(ref_fn, port_fn) -> list[tuple[str, dict, dict]]:
     """The reference test's parametrisations beside the port's (the same
     cases, with ``"jit"`` retargeted): ``(id, ref_kwargs, port_kwargs)``."""
@@ -324,37 +350,87 @@ def _param_cases(ref_fn, port_fn) -> list[tuple[str, dict, dict]]:
             pvals = pv if len(names) > 1 else (pv,)
             rk.update(zip(names, rvals))
             pk.update(zip(names, pvals))
-            ids.append("-".join(f"{a}/{b}" if a != b else str(a)
-                                for a, b in zip(rvals, pvals)))
+            ids.append("-".join(f"{_id(a)}/{_id(b)}" if a != b
+                                else _id(a) for a, b in zip(rvals, pvals)))
         cases.append(("-".join(ids), rk, pk))
     return cases
 
 
 class _Fixtures:
-    """The reference module's own fixtures, made once per process for
-    each package (module scope, as in the reference), and the built-in
-    ones each run needs."""
+    """The reference module's own fixtures, made for each package as
+    their scope says (module-scoped ones once per process and fixture
+    parameters, function-scoped ones each run; ``request.param`` from the
+    case being run), and the built-in ones each run needs."""
 
     def __init__(self):
         self._cache: dict = {}
 
-    def resolve(self, mod, name, mp, tmp_factory):
+    def resolve(self, mod, name, mp, tmp_factory, fparams):
         if name == "monkeypatch":
             return mp
         if name == "tmp_path":
             return tmp_factory.mktemp("mirror")
-        key = (mod.__name__, name)
-        if key not in self._cache:
-            fx = getattr(mod, name)
-            self._cache[key] = fx._get_wrapped_function()()
-        return self._cache[key]
+        if name in fparams.get(_BUILTINS, {}):
+            return fparams[_BUILTINS][name]
+        fx = getattr(mod, name)
+        scoped = fx._fixture_function_marker.scope != "function"
+        key = (mod.__name__, name, fparams.get(_DEFAULT), tuple(
+            (f, repr(fparams[f])) for f in _fixture_closure(mod, name)
+            if f in fparams))
+        if scoped and key in self._cache:
+            return self._cache[key]
+        fn = fx._get_wrapped_function()
+        kwargs = {}
+        for arg in inspect.signature(fn).parameters:
+            if arg == "request":
+                kwargs[arg] = types.SimpleNamespace(param=fparams.get(name))
+            else:
+                kwargs[arg] = self.resolve(mod, arg, mp, tmp_factory,
+                                           fparams)
+        out = fn(**kwargs)
+        if inspect.isgenerator(out):
+            out = next(out)
+        if scoped:
+            self._cache[key] = out
+        return out
 
 
 _FIXTURES = _Fixtures()
 
 
-def _run_one(pkg, mod, fn, params, default_backend, tmp_factory):
-    """Run one test function on one package; returns its record."""
+def _is_fixture(mod, name) -> bool:
+    return hasattr(getattr(mod, name, None), "_fixture_function_marker")
+
+
+def _fixture_closure(mod, name) -> list[str]:
+    """The fixtures ``name`` depends on, itself included."""
+    out, todo = [], [name]
+    while todo:
+        n = todo.pop()
+        if n in out or not _is_fixture(mod, n):
+            continue
+        out.append(n)
+        fn = getattr(mod, n)._get_wrapped_function()
+        todo += list(inspect.signature(fn).parameters)
+    return out
+
+
+def _fixture_params(mod, fn) -> list[tuple[str, tuple]]:
+    """(fixture, its params) of every parametrized fixture ``fn`` uses."""
+    names = []
+    for arg in inspect.signature(fn).parameters:
+        for n in _fixture_closure(mod, arg):
+            if n not in names:
+                names.append(n)
+    return [(n, getattr(mod, n)._fixture_function_marker.params)
+            for n in names
+            if getattr(mod, n)._fixture_function_marker.params]
+
+
+def _run_one(pkg, mod, fn, params, default_backend, tmp_factory,
+             builtins=None):
+    """Run one test function on one package; returns its record.
+    ``builtins`` holds pytest's own fixtures the test asks for."""
     import importlib
     compile_mod = importlib.import_module(f"{pkg}.engine.compile")
     mp = pytest.MonkeyPatch()
@@ -364,45 +440,88 @@ def _run_one(pkg, mod, fn, params, default_backend, tmp_factory):
         compile_mod.PLAN_CACHE.clear()
         rec = _Recorder(pkg, mp)
         kwargs = dict(params)
+        if getattr(fn, "is_hypothesis_test", False):
+            # Both packages' runs draw the same examples.
+            import hypothesis
+            fn = hypothesis.seed(_HYPOTHESIS_SEED)(fn)
+        fparams = {**kwargs.pop(_FIXTURE_PARAMS, {}),
+                   _DEFAULT: default_backend, _BUILTINS: builtins or {}}
         for name in inspect.signature(fn).parameters:
             if name not in kwargs:
                 kwargs[name] = _FIXTURES.resolve(mod, name, mp,
-                                                 tmp_factory)
+                                                 tmp_factory, fparams)
         fn(**kwargs)
         return rec.log
     finally:
         mp.undo()
 
 
-def mirror(name: str, numpy_too=()) -> dict:
+# Keys of a run's fixture parameters: the fixtures' own, and the default
+# backend the run patched in (a fixture made under one default must not
+# serve a run under another).
+_FIXTURE_PARAMS = "__fixture_params__"
+_DEFAULT = "__default_backend__"
+_BUILTINS = "__builtins__"
+_HYPOTHESIS_SEED = 20260101
+
+
+def _cases(ref_mod, port_mod, ref_fn, port_fn) -> list[tuple[str, dict,
+                                                              dict]]:
+    """The parametrisations of a test and of the fixtures it uses, the
+    reference's beside the port's."""
+    cases = _param_cases(ref_fn, port_fn)
+    rf, pf = _fixture_params(ref_mod, ref_fn), \
+        _fixture_params(port_mod, port_fn)
+    for (name, rvals), (_, pvals) in zip(rf, pf):
+        grown = []
+        for cid, rk, pk in cases:
+            for rv, pv in zip(rvals, pvals):
+                rfix = {**rk.get(_FIXTURE_PARAMS, {}), name: rv}
+                pfix = {**pk.get(_FIXTURE_PARAMS, {}), name: pv}
+                vid = str(rv) if rv == pv else f"{rv}/{pv}"
+                grown.append(("-".join(x for x in (cid, vid) if x),
+                              {**rk, _FIXTURE_PARAMS: rfix},
+                              {**pk, _FIXTURE_PARAMS: pfix}))
+        cases = grown
+    return cases
+
+
+def mirror(name: str, numpy_too=(), omit=None) -> dict:
     """Test functions holding the port to the reference module
     ``tests/<name>.py``, one per reference test and under its name. The
     tests named in ``numpy_too`` use the default backend and run on
-    ``numpy``/``numpy`` as well as ``jit``/``torch``."""
+    ``numpy``/``numpy`` as well as ``jit``/``torch``. ``omit`` maps the
+    name of a reference test that checks the JAX package's own machinery
+    to the reason it has no mirror."""
     import importlib
     ref_mod = importlib.import_module(name)
     port_mod = port_module(name)
     out = {}
+    omit = omit or {}
     names = [n for n, f in vars(ref_mod).items()
              if n.startswith("test_") and callable(f)]
-    unknown = set(numpy_too) - set(names)
+    unknown = (set(numpy_too) | set(omit)) - set(names)
     assert not unknown, f"{name} has no tests {sorted(unknown)}"
+    assert all(omit.values()), "each omitted test needs its reason"
     for tname in names:
+        if tname in omit:
+            continue
         ref_fn, port_fn = getattr(ref_mod, tname), getattr(port_mod, tname)
         cases = []
-        for cid, rk, pk in _param_cases(ref_fn, port_fn):
+        for cid, rk, pk in _cases(ref_mod, port_mod, ref_fn, port_fn):
             cases.append(pytest.param(None, rk, pk, id=cid or "jit/torch"))
             if tname in numpy_too:
                 cases.append(pytest.param(
                     "numpy", rk, pk,
                     id=(cid + "-" if cid else "") + "numpy"))
 
-        def test(mirror_env, tmp_path_factory, default, ref_kw, port_kw,
-                 _ref=ref_fn, _port=port_fn):
+        def test(mirror_env, tmp_path_factory, capsys, default, ref_kw,
+                 port_kw, _ref=ref_fn, _port=port_fn):
+            builtins = {"capsys": capsys}
             ref_log = _run_one("repro", ref_mod, _ref, ref_kw, default,
-                               tmp_path_factory)
+                               tmp_path_factory, builtins)
             port_log = _run_one(_PORT_PREFIX, port_mod, _port, port_kw,
-                                default, tmp_path_factory)
+                                default, tmp_path_factory, builtins)
             assert_records_equal(ref_log, port_log)
 
         test.__name__ = tname
