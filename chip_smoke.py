@@ -123,13 +123,20 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    tokens in turn with the kernel off (rank 0), within 2^-6 of the size
    of each output's summed terms; every ``gmm`` launch on the
    tensor-core route; the kernel at the EP shape against its plain
-   version, timed. (d2) Two sharded train steps of DeepSeekMoE-16B (its
+   version, timed. The mesh steps of (d2), (d3) and (d6) run the
+   reference's activation tensor parallelism (``ACT_RULES``, the steps'
+   default: attention heads, KV heads where they divide, the FFN's and
+   the RG-LRU's width, RWKV heads and the vocabulary split over
+   ``"model"``). (d2) Two sharded train steps of DeepSeekMoE-16B (its
    dense layer and one ``moe`` layer, capacity factor 16, 8 x 256
    tokens) and of RecurrentGemma-2B's (rec, rec, local) unit (8 x 512
    tokens) against the one-process step on the same weights and batch
-   (DeepSeekMoE's with the EP path's per-shard routing): losses within
-   2^-7 of the mean largest |logit|, step 1's gradient cosines >= 0.99
-   (step 2's logged: its weights already differ by rounding), every
+   (DeepSeekMoE's with the EP path's per-shard routing), and
+   DeepSeekMoE's again under the hillclimb's ``FSDP_ACT_RULES`` (the
+   batch over (data, model), no TP: the EP path exchanges the rows into
+   its layout, ROADMAP C.6) against the same one-process step: losses
+   within 2^-7 of the mean largest |logit|, step 1's gradient cosines >=
+   0.99 (step 2's logged: its weights already differ by rounding), every
    update of three or four leaves within ``check_updates``' allowances;
    each rank's parameter bytes those the rules give; DeepSeekMoE's
    checkpoint saved from (2, 2) restored onto one device and onto a
@@ -142,7 +149,23 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    logits within ``LOGIT_TOL`` of the one-process engine's on the same
    weights and the same top-k expert choices (where near-ties flipped,
    the one-process prefill replays the mesh's), and the same first token
-   wherever the top-1/top-2 gap exceeds twice the difference. (d4) The
+   wherever the top-1/top-2 gap exceeds twice the difference. (d6)
+   RecurrentGemma-2B and RWKV-6 1.6B served on the mesh at full width and
+   depth, ``impl="flash"``, the (d3) requests: identical completions on
+   every rank; every flash launch on the tensor-core route at q (2, S, 5,
+   256) and k/v (2, S, 1, 256), every RG-LRU launch on the TMA route at
+   (2, S, 1,280), every RWKV-6 launch on the tensor-core route at (2, S,
+   16, 64); each rank's caches in ``cache_shardings``' local shapes (the
+   window cache split over its slots, the RG-LRU state and RWKV heads
+   over "model"); the first-token logits within ``LOGIT_TOL`` of the
+   one-process engine's on the same weights; each rank's prefill matmul
+   FLOPs (``FlopCounterMode``) under ACT_RULES and under the rules
+   without TP beside ``model_flops / chips`` (they must fall by at least
+   ``TP_FLOPS_MIN_RATIO``), the collective bytes by kind, the prefill
+   and decode times and the peak memory a rank, each also from the same
+   requests served again without TP (identical completions on every
+   rank there too); then each kernel at those local shapes against its
+   plain version, timed. (d4) The
    same ranks as (pod 2, data 2): ``compressed_psum`` over ``"pod"`` of
    gradient leaves of the RecurrentGemma unit's shapes, the reference
    test's checks (one-step error < 0.02, a nonzero error state, the
@@ -311,8 +334,19 @@ DIST_TRAIN_BATCH, DIST_TRAIN_MICRO, DIST_TRAIN_STEPS = 8, 2, 2
 # its experts change their layout over "model" (cut: the RecurrentGemma
 # unit's, 9.4 GB, another minute of the phase).
 DIST_CKPT_ARCH = "deepseek-moe-16b"
+# (d2) also runs DeepSeekMoE's steps under the hillclimb's
+# FSDP_ACT_RULES (the batch over (data, model): the EP path's row
+# exchange, ROADMAP C.6), keyed "<arch>@fsdp".
+DIST_TRAIN_RUNS = ("deepseek-moe-16b", "recurrentgemma-2b",
+                   "deepseek-moe-16b@fsdp")
 # (d3)
 DIST_SERVE_REQUESTS, DIST_SERVE_NEW = 4, 16
+# (d6): tensor-parallel serving under ACT_RULES at full width and depth,
+# on the (d3) requests; a rank's matmul FLOPs of one prefill must fall by
+# at least this factor from the layout without TP (tp = 2; the parts every
+# model rank keeps whole cost the rest).
+TP_SERVE_ARCHS = ("recurrentgemma-2b", "rwkv6-1.6b")
+TP_FLOPS_MIN_RATIO = 1.8
 DIST_PARITY_MOE_LAYERS, DIST_PARITY_PROMPT = 2, 1024
 # (d4): leaves above this many elements (the unit's 256000 x 2560
 # embedding: its float32 partial and temporaries take about 20 GB a
@@ -3107,10 +3141,11 @@ def _whole(t):
     return t.detach()
 
 
-def train_on(cfg, mesh, device, leaves, moe_layer=None):
+def train_on(cfg, mesh, device, leaves, moe_layer=None, act_rules=None):
     """DIST_TRAIN_STEPS steps of ``make_train_step`` from the seeded
-    weights (on ``mesh``, or one device): (losses, grad norms, step
-    seconds, update records, model, opt state)."""
+    weights (on ``mesh`` under ``act_rules``, the reference's ACT_RULES
+    by default, or one device): (losses, grad norms, step seconds, update
+    records, model, opt state)."""
     import torch
     from repro_torch.launch import steps
     from repro_torch.models import moe as moe_mod
@@ -3120,7 +3155,8 @@ def train_on(cfg, mesh, device, leaves, moe_layer=None):
     model = tfm.init_model(cfg, gen, dtype=cfg.activation_dtype, mesh=mesh)
     opt_cfg = _train_opt()
     opt = opt_mod.init_opt_state(model, opt_cfg)
-    step = Timed(steps.make_train_step(cfg, opt_cfg, mesh=mesh))
+    step = Timed(steps.make_train_step(cfg, opt_cfg, mesh=mesh,
+                                       act_rules=act_rules))
     records, metrics = [], []
     with replaced(opt_mod, "apply_updates",
                   _update_recorder(records, leaves, _whole)):
@@ -3155,15 +3191,18 @@ def dist_train(mesh, rank: int) -> dict:
     from repro_torch.train import optimizer as opt_mod
     dev = mesh_mod.local_device()
     m41 = mesh_mod.make_local_mesh(4, 1, device_type=DEVICE)
+    from repro_torch.sharding import rules as shrules
     out = {}
-    for arch in DIST_TRAIN:
+    for key in DIST_TRAIN_RUNS:
         t_arch = time.perf_counter()
+        arch, _, rules = key.partition("@")
         cfg = _train_cfg(arch)
         leaves = _train_leaves(cfg)
         sm.reset_comm()
         torch.cuda.reset_peak_memory_stats()
-        metrics, seconds, records, model, opt = train_on(cfg, mesh, dev,
-                                                         leaves)
+        metrics, seconds, records, model, opt = train_on(
+            cfg, mesh, dev, leaves,
+            act_rules=shrules.FSDP_ACT_RULES if rules == "fsdp" else None)
         comm = {k: dict(v) for k, v in sm.COMM.items()}
         local = sum(p.to_local().numel() * p.element_size()
                     for p in model.parameters())
@@ -3179,13 +3218,13 @@ def dist_train(mesh, rank: int) -> dict:
         rec = {"metrics": metrics, "seconds": seconds, "comm": comm,
                "local_param_bytes": local, "rules_param_bytes": rules,
                "peak": torch.cuda.max_memory_allocated()}
-        if arch != DIST_CKPT_ARCH:
+        if key != DIST_CKPT_ARCH:
             del model, opt
             torch.cuda.empty_cache()
             if rank == 0:
                 rec["records"] = records
             rec["phase_s"] = time.perf_counter() - t_arch
-            out[arch] = rec
+            out[key] = rec
             continue
         store = ObjectStore()
         t0 = time.perf_counter()
@@ -3230,7 +3269,7 @@ def dist_train(mesh, rank: int) -> dict:
         torch.cuda.empty_cache()
         torch.distributed.barrier()
         rec["phase_s"] = time.perf_counter() - t_arch
-        out[arch] = rec
+        out[key] = rec
     return out
 
 
@@ -3304,6 +3343,122 @@ def dist_serve(mesh, rank: int, serve_layers: int) -> dict:
                      "completions": [r.completion.tolist() for r in done]}
     del eng
     torch.cuda.empty_cache()
+    return out
+
+
+def dist_tp_serve(mesh, rank: int) -> dict:
+    """(d6) on the ranks: each of ``TP_SERVE_ARCHS`` served at full width
+    and depth under the reference's ACT_RULES (heads, ff and vocab split
+    over "model"), ``impl="flash"``: the (d3) requests, the launch counts
+    of ``serve`` alone; then the first batch's prefill again for its
+    logits (rank 0, all rows), its caches' shapes and (rank 0) each
+    kernel's inputs; then one prefill under ``FlopCounterMode`` under
+    ACT_RULES and one under the rules without TP."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core import shard_map as sm
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.sharding import rules as shrules
+    out = {}
+    for arch in TP_SERVE_ARCHS:
+        cfg = ARCHS[arch]
+        impl = SERVINGS[arch][0]
+        max_len = SERVE_PROMPT + DIST_SERVE_NEW
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServingEngine(cfg, DIST_SERVE_REQUESTS, SERVE_PROMPT, max_len,
+                            seed=SERVE_SEED, impl=impl, mesh=mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        reqs = dist_requests(cfg.vocab_size)
+        prefill, decode = Timed(eng.prefill), Timed(eng.decode)
+        eng.prefill, eng.decode = prefill, decode
+        torch.distributed.barrier()
+        reset_launch_counts()                     # the path: counts at 0
+        sm.reset_comm()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**launch_counts(), **route_counts()}  # ... just after
+        comm = {k: dict(v) for k, v in sm.COMM.items()}
+        peak = torch.cuda.max_memory_allocated()
+        eng.prefill, eng.decode = prefill.fn, decode.fn
+        # The same requests on the same weights in the layout without TP
+        # (every model rank computes its rows' dense layers whole).
+        no_tp = shrules.NO_TP_ACT_RULES
+        eng.prefill = Timed(steps.make_prefill_step(
+            cfg, max_len, impl=impl, mesh=mesh, act_rules=no_tp))
+        eng.decode = Timed(steps.make_decode_step(
+            cfg, DIST_SERVE_REQUESTS, mesh=mesh, act_rules=no_tp))
+        torch.cuda.reset_peak_memory_stats()
+        sm.reset_comm()
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done_no_tp = eng.serve(dist_requests(cfg.vocab_size))
+        torch.cuda.synchronize()
+        no_tp_rec = {"wall_s": time.perf_counter() - t0,
+                     "prefill_s": eng.prefill.seconds,
+                     "decode_s": eng.decode.seconds,
+                     "comm": {k: dict(v) for k, v in sm.COMM.items()},
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "completions": [r.completion.tolist()
+                                     for r in done_no_tp]}
+        eng.prefill, eng.decode = prefill.fn, decode.fn
+        toks = eng._batch_prompts(reqs)
+        recs = _recorders(arch) if rank == 0 else {}
+        try:
+            logits, caches = eng.prefill(eng.model, {"tokens": toks})
+        finally:
+            for r in recs.values():
+                r.restore()
+        with torch.inference_mode():
+            for a in reversed(eng.batch_axes):
+                logits = sm.gather(logits, 0, mesh, a)
+        whole = tfm.init_cache(cfg, DIST_SERVE_REQUESTS, max_len,
+                               cfg.activation_dtype, device="meta")
+        specs = steps.cache_shardings(whole, mesh)
+        cache_want = [[steps.local_shape(t.shape, sp, mesh)
+                       for t, sp in zip(c, spec)
+                       if isinstance(t, torch.Tensor)]
+                      for c, spec in zip(whole, specs)]
+        cache_got = [[tuple(t.shape) for t in c
+                      if isinstance(t, torch.Tensor)] for c in caches]
+        del caches
+        flops = {}
+        for name, rules in (("act_rules", None),
+                            ("no_tp", shrules.NO_TP_ACT_RULES)):
+            step = steps.make_prefill_step(cfg, max_len, impl=impl,
+                                           mesh=mesh, act_rules=rules)
+            with FlopCounterMode(display=False) as counter:
+                step(eng.model, {"tokens": toks})
+            flops[name] = counter.get_total_flops()
+            torch.cuda.empty_cache()
+        rec = {"init_s": init_s, "wall_s": wall, "launches": launches,
+               "prefill_s": prefill.seconds, "decode_s": decode.seconds,
+               "comm": comm, "peak": peak, "flops": flops,
+               "local_param_bytes": sum(p.to_local().numel()
+                                        * p.element_size()
+                                        for p in eng.model.parameters()),
+               "cache_got": cache_got, "cache_want": cache_want,
+               "cache_specs": [list(sp) for sp in specs],
+               "completions": [r.completion.tolist() for r in done],
+               "no_tp": no_tp_rec}
+        if rank == 0:
+            rec["logits"] = _host(logits.float())
+            rec["kernel_inputs"] = {
+                k: (tuple(_host(a) for a in r.args[0]), r.args[1])
+                for k, r in recs.items()}
+        out[arch] = rec
+        del eng, done, done_no_tp, logits, recs
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
     return out
 
 
@@ -3409,6 +3564,9 @@ def dist_rank_main(serve_layers: int) -> dict:
     t0 = time.perf_counter()
     out["serve"] = dist_serve(mesh, rank, serve_layers)
     out["serve_phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["tp_serve"] = dist_tp_serve(mesh, rank)
+    out["tp_serve_phase_s"] = time.perf_counter() - t0
     out["compress"] = dist_compress(rank)
     return out
 
@@ -3589,35 +3747,21 @@ def check_dist_ep(res, card) -> dict:
 def check_dist_train(res, card) -> None:
     """(d2) in the parent: the one-process steps of each model on the same
     weights and batches (DeepSeekMoE with the EP path's per-shard
-    routing), against rank 0's records."""
+    routing), against rank 0's records of each run (the tensor-parallel
+    ACT_RULES, and DeepSeekMoE under FSDP_ACT_RULES too)."""
     import math
-    import torch
-    from repro_torch.models import moe as moe_mod
-    from repro_torch.models import transformer as tfm
     from repro_torch.train import optimizer as opt_mod
     data, model = DIST_MESH
     failed = []
-    for arch in DIST_TRAIN:
+    one_process = {}
+    for key in DIST_TRAIN_RUNS:
+        arch = key.partition("@")[0]
         cfg = _train_cfg(arch)
         leaves = _train_leaves(cfg)
-        mesh_rec = res[0]["train"][arch]
-        logit_max = []
-
-        def record_max(f):
-            def lm_head(m, c, x, *rest):
-                logits = f(m, c, x, *rest)
-                with torch.no_grad():
-                    logit_max.append(float(torch.maximum(
-                        logits.amax(-1), -logits.amin(-1)).mean()))
-                return logits
-            return lm_head
-        layer = moe_mod.per_shard_layer(data, model) if cfg.moe else None
-        with replaced(tfm, "_lm_head", record_max):
-            metrics, seconds, records, m1, o1 = train_on(
-                cfg, None, DEVICE, leaves, moe_layer=layer)
-        del m1, o1
-        torch.cuda.empty_cache()
-        loss_tol = 2.0 ** -7 * sum(logit_max) / len(logit_max)
+        mesh_rec = res[0]["train"][key]
+        if arch not in one_process:
+            one_process[arch] = one_process_steps(cfg, leaves, data, model)
+        metrics, seconds, records, loss_tol = one_process[arch]
         got = mesh_rec["metrics"]
         loss_err = [abs(a[0] - b[0]) for a, b in zip(got, metrics)]
         cos = {}
@@ -3638,6 +3782,7 @@ def check_dist_train(res, card) -> None:
         upd = check_updates(on_card, _train_opt(), decays)
         del on_card
         log("distributed_train", card=card, arch=arch, mesh=list(DIST_MESH),
+            act_rules=key.partition("@")[2] or "act",
             layers=cfg.num_layers, tokens=[DIST_TRAIN_BATCH,
                                            DIST_TRAIN[arch][1]],
             microbatches=cfg.microbatches,
@@ -3646,16 +3791,16 @@ def check_dist_train(res, card) -> None:
             loss_error=loss_err, loss_tol=loss_tol,
             grad_norms=[m[1] for m in got],
             grad_norms_one_device=[m[1] for m in metrics],
-            step_s_per_rank=[r["train"][arch]["seconds"] for r in res],
+            step_s_per_rank=[r["train"][key]["seconds"] for r in res],
             step_s_one_device=seconds, gradient_cosine=cos,
             gradient_cosine_min=GRAD_COSINE,
             update_error_over_allowance=upd["worst"],
             comm_rank0=mesh_rec["comm"],
-            param_bytes_per_rank=[r["train"][arch]["local_param_bytes"]
+            param_bytes_per_rank=[r["train"][key]["local_param_bytes"]
                                   for r in res],
             param_bytes_by_rules=mesh_rec["rules_param_bytes"],
-            peak_per_rank=[r["train"][arch]["peak"] for r in res])
-        if arch == DIST_CKPT_ARCH:
+            peak_per_rank=[r["train"][key]["peak"] for r in res])
+        if key == DIST_CKPT_ARCH:
             log("distributed_checkpoint", card=card, arch=arch,
                 bytes=mesh_rec["checkpoint_bytes"],
                 save_s=mesh_rec["save_s"],
@@ -3666,30 +3811,58 @@ def check_dist_train(res, card) -> None:
                 restore_one_device_byte_equal=mesh_rec[
                     "restore_one_equal"])
         if not all(math.isfinite(m[0]) for m in got):
-            failed.append(f"{arch}: losses {got}")
-        failed += [f"{arch}: step {i + 1} loss off by {e}" for i, e in
+            failed.append(f"{key}: losses {got}")
+        failed += [f"{key}: step {i + 1} loss off by {e}" for i, e in
                    enumerate(loss_err) if not e <= loss_tol]
         # Step 1 holds both sides' gradients at the same weights; step 2's
         # weights already differ by the two steps' rounding (logged).
-        failed += [f"{arch}: gradient cosine of {n}: {c}"
+        failed += [f"{key}: gradient cosine of {n}: {c}"
                    for n, c in cos.items()
                    if n.endswith("@1") and not c >= GRAD_COSINE]
-        failed += [f"{arch}: update of {k}: {e} allowances" for k, (e, _)
+        failed += [f"{key}: update of {k}: {e} allowances" for k, (e, _)
                    in upd["worst"].items() if not e <= 1.0]
-        if arch == DIST_CKPT_ARCH and not (
+        if key == DIST_CKPT_ARCH and not (
                 mesh_rec["restore_41_equal"]
                 and mesh_rec["restore_one_equal"]):
-            failed.append(f"{arch}: a restored checkpoint is not "
+            failed.append(f"{key}: a restored checkpoint is not "
                           "byte-equal")
         for r in res:
-            if r["train"][arch]["local_param_bytes"] != \
+            if r["train"][key]["local_param_bytes"] != \
                     mesh_rec["rules_param_bytes"]:
-                failed.append(f"{arch}: a rank holds "
-                              f"{r['train'][arch]['local_param_bytes']} "
+                failed.append(f"{key}: a rank holds "
+                              f"{r['train'][key]['local_param_bytes']} "
                               "parameter bytes, not the rules'")
-        del records
+    del one_process
     if failed:
         raise AssertionError("distributed train: " + "; ".join(failed))
+
+
+def one_process_steps(cfg, leaves, data: int, model: int):
+    """(d2)'s one-process steps of ``cfg`` on the same weights and batches
+    (DeepSeekMoE with the EP path's per-shard routing): (metrics, step
+    seconds, update records, the loss tolerance: 2^-7 of the mean largest
+    |logit|)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    logit_max = []
+
+    def record_max(f):
+        def lm_head(m, c, x, *rest):
+            logits = f(m, c, x, *rest)
+            with torch.no_grad():
+                logit_max.append(float(torch.maximum(
+                    logits.amax(-1), -logits.amin(-1)).mean()))
+            return logits
+        return lm_head
+    layer = moe_mod.per_shard_layer(data, model) if cfg.moe else None
+    with replaced(tfm, "_lm_head", record_max):
+        metrics, seconds, records, m1, o1 = train_on(
+            cfg, None, DEVICE, leaves, moe_layer=layer)
+    del m1, o1
+    torch.cuda.empty_cache()
+    loss_tol = 2.0 ** -7 * sum(logit_max) / len(logit_max)
+    return metrics, seconds, records, loss_tol
 
 
 def check_dist_serve(res, card, plan) -> dict:
@@ -3808,6 +3981,252 @@ def check_dist_serve(res, card, plan) -> dict:
     return launches
 
 
+def tp_local_shapes(cfg) -> dict:
+    """The shapes the (d6) path gives each kernel on a rank of the
+    (data 2, model 2) mesh: the data shard's rows, the rank's heads or
+    channels."""
+    data, model = DIST_MESH
+    b, s = DIST_SERVE_REQUESTS // data, SERVE_PROMPT
+    if cfg.recurrent and cfg.recurrent.lru_width:
+        w = cfg.recurrent.lru_width
+        return {"flash_attention": [(b, s, cfg.num_heads // model,
+                                     cfg.head_dim),
+                                    (b, s, cfg.num_kv_heads, cfg.head_dim)],
+                "rglru_scan": [(b, s, w // model)]}
+    hd = cfg.recurrent.head_dim
+    return {"rwkv6_scan": [(b, s, cfg.d_model // hd // model, hd)]}
+
+
+def check_tp_kernels(arch, inputs, launches, card) -> None:
+    """(d6)'s kernels on the card at the local shapes rank 0 gave them:
+    each on its redesigned route, held against its plain version and
+    timed as phase 9 times them (median of five batches of CUDA events),
+    beside the bound of the same work and the library call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rs
+    for name, (args, kw) in inputs.items():
+        args = tuple(a.to(DEVICE) for a in args)
+        if name == "flash_attention":
+            q, k, v = args
+            causal, window = kw.get("causal", True), kw.get("window", 0)
+            b, sq, h, d = q.shape
+            kern = lambda: fa.flash_attention(  # noqa: E731
+                q, k, v, causal=causal, window=window)
+            plain = lambda: fa.flash_attention_plain(  # noqa: E731
+                q, k, v, causal=causal, window=window)
+            qp = torch.arange(sq, device=DEVICE)[:, None]
+            kp = torch.arange(k.shape[1], device=DEVICE)[None, :]
+            band = (kp <= qp) & ((kp > qp - window) if window else True)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+            n0 = fa.FLASH_ATTENTION_TC_LAUNCHES
+            got, want = kern(), plain()
+            if fa.FLASH_ATTENTION_TC_LAUNCHES != n0 + 1:
+                raise AssertionError("(d6) flash attention left the "
+                                     "tensor-core route")
+            err = within(got, want, BF16_TOL)
+            pairs = band_pairs(sq, k.shape[1], causal, window)
+            flops = 4.0 * b * h * d * pairs
+            nbytes = sum(t.numel() for t in (q, k, v, got)) * q.element_size()
+            t_ops = flops / BF16_FLOPS_PER_S * 1e3
+            times = kernel_times(kern, plain, lib)
+            route = fa._route(q.dtype, d)
+            source = "src/repro_torch/csrc/flash_attention_wgmma.cu"
+            replaces = "src/repro/kernels/flash_attention.py:22"
+            shape = [list(q.shape), list(k.shape)]
+        elif name == "rglru_scan":
+            la, bb, hh = args
+            b, sq, w = la.shape
+            kern = lambda: rg.rglru_scan(la, bb, hh)  # noqa: E731
+            plain = lambda: rg.rglru_scan_plain(la, bb, hh)  # noqa: E731
+            n0 = rg.RGLRU_SCAN_TMA_LAUNCHES
+            (g_all, g_last), (w_all, w_last) = kern(), plain()
+            if rg.RGLRU_SCAN_TMA_LAUNCHES != n0 + 1:
+                raise AssertionError("(d6) rglru_scan left the TMA route")
+            err = max(within(g_all, w_all, SCAN_TOL),
+                      within(g_last, w_last, SCAN_TOL))
+            nbytes, t_ops = 4 * (3 * b * sq * w + 2 * b * w), 0.0
+            per = time_spread(kern)
+            times = {"ms": per[len(per) // 2], "ms_min": per[0],
+                     "ms_max": per[-1], "plain_ms": time_ms(plain),
+                     "library_ms": None}
+            route = rg._route(sq, w)
+            source = "src/repro_torch/csrc/rglru_scan_tma.cu"
+            replaces = "src/repro/kernels/rglru_scan.py:21"
+            shape = [list(la.shape)]
+        else:
+            r, k, v, lw, u, s0 = args
+            b, sq, h, kd = r.shape
+            vd = v.shape[3]
+            kern = lambda: rs.rwkv6_scan(r, k, v, lw, u, s0)  # noqa: E731
+            plain = lambda: rs.rwkv6_scan_plain(  # noqa: E731
+                r, k, v, lw, u, s0, **kw)
+            n0 = rs.RWKV6_SCAN_TC_LAUNCHES
+            (g_o, g_s), (w_o, w_s) = kern(), plain()
+            if rs.RWKV6_SCAN_TC_LAUNCHES != n0 + 1:
+                raise AssertionError("(d6) rwkv6_scan left the tensor-core "
+                                     "route")
+            _, _, o_mag, s_mag = rwkv6_truth(r, k, v, lw, u, s0)
+            err = max(within_scan(g_o, w_o, o_mag, BF16_TOL),
+                      within_scan(g_s, w_s, s_mag, 0.0))
+            del o_mag, s_mag
+            nbytes = (r.numel() + k.numel() + v.numel() + g_o.numel()) \
+                * r.element_size() + 4 * (lw.numel() + u.numel()
+                                          + 2 * s0.numel())
+            tc_flops = b * h * sq * 4 * kd * vd
+            cc_flops = b * h * sq * 2 * RWKV_CHUNK * (kd + vd)
+            t_ops = (tc_flops / TF32_FLOPS_PER_S
+                     + cc_flops / F32_FLOPS_PER_S) * 1e3
+            per = time_spread(kern)
+            times = {"ms": per[len(per) // 2], "ms_min": per[0],
+                     "ms_max": per[-1], "plain_ms": time_ms(plain),
+                     "library_ms": None}
+            route = rs._route(r.dtype, kd, vd)
+            source = "src/repro_torch/csrc/rwkv6_scan_tc.cu"
+            replaces = "src/repro/kernels/rwkv6_scan.py:27"
+            shape = [list(r.shape)]
+        torch.cuda.synchronize()
+        t_bytes = bound_ms(nbytes)
+        log("kernel_tp", card=card, arch=arch, name=name, route="cuda",
+            source=source, replaces=replaces, kernel_route=route,
+            launches=launches[name], shape=shape, max_abs_err=err,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            **times)
+        del args
+        torch.cuda.empty_cache()
+
+
+def check_dist_tp_serve(res, card) -> dict:
+    """(d6) in the parent: per model, identical completions on every rank,
+    the launches of ``serve`` on each rank (every one on the redesigned
+    route) at the local shapes, each rank's caches in the layout
+    ``cache_shardings`` gives, the first-token logits of the one-process
+    engine on the same weights within ``LOGIT_TOL``, each rank's prefill
+    matmul FLOPs under ACT_RULES against the layout without TP and
+    ``model_flops / chips``, then the kernels at the local shapes.
+    Returns each kernel's launches summed over the ranks."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import roofline
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServingEngine
+    total = {}
+    for arch in TP_SERVE_ARCHS:
+        cfg = ARCHS[arch]
+        impl, kernels = SERVINGS[arch]
+        recs = [r["tp_serve"][arch] for r in res]
+        r0 = recs[0]
+        kinds = tfm.layer_kinds(cfg)
+        for i, r in enumerate(recs):
+            if r["completions"] != r0["completions"]:
+                raise AssertionError(f"(d6) {arch}: rank {i}'s completions "
+                                     "differ from rank 0's")
+            if r["cache_got"] != r["cache_want"]:
+                raise AssertionError(f"(d6) {arch}: rank {i}'s caches "
+                                     f"{r['cache_got'][:3]}... are not "
+                                     f"cache_shardings' {r['cache_want'][:3]}")
+            n = r["launches"]
+            for k, (kind, per) in kernels.items():
+                want = kinds.count(kind) * per
+                if n[k] != want or n[TC_ROUTES[k]] != want:
+                    raise AssertionError(f"(d6) {arch} rank {i}: {k} "
+                                         f"launched {n[k]} times, "
+                                         f"{n[TC_ROUTES[k]]} on its route; "
+                                         f"{want} expected")
+                total[k] = total.get(k, 0) + n[k]
+            others = [k for k in ("flash_attention", "rglru_scan",
+                                  "rwkv6_scan", "gmm")
+                      if k not in kernels and n[k]]
+            if others:
+                raise AssertionError(f"(d6) {arch}: {others} launched")
+        local = tp_local_shapes(cfg)
+        got_shapes = {k: [list(a.shape) for a in args[:len(local[k])]]
+                      for k, (args, _) in r0["kernel_inputs"].items()}
+        if got_shapes != {k: [list(s_) for s_ in v]
+                          for k, v in local.items()}:
+            raise AssertionError(f"(d6) {arch}: kernel shapes {got_shapes}, "
+                                 f"expected {local}")
+        # The one-process engine on the same weights and prompts.
+        eng = ServingEngine(cfg, DIST_SERVE_REQUESTS, SERVE_PROMPT,
+                            SERVE_PROMPT + DIST_SERVE_NEW, seed=SERVE_SEED,
+                            impl=impl, device=DEVICE)
+        toks = eng._batch_prompts(dist_requests(cfg.vocab_size))
+        one, _ = eng.prefill(eng.model, {"tokens": toks})
+        one = _host(one.float())
+        del eng
+        torch.cuda.empty_cache()
+        diff = float((r0["logits"] - one).abs().max())
+        top2 = one.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * diff
+        tok_mesh, tok_one = r0["logits"].argmax(-1), one.argmax(-1)
+        tol = LOGIT_TOL[arch]
+        shape = ShapeConfig("d6_prefill", SERVE_PROMPT, DIST_SERVE_REQUESTS,
+                            "prefill")
+        model_flops = roofline.model_flops(cfg, shape)
+        ratio = [r["flops"]["no_tp"] / r["flops"]["act_rules"]
+                 for r in recs]
+        dec = sorted(r0["decode_s"])
+        comm = {}
+        for r in recs:
+            for k, v in r["comm"].items():
+                comm.setdefault(k, []).append(v["bytes"])
+        n0 = r0["no_tp"]
+        dec_no_tp = sorted(n0["decode_s"])
+        log("distributed_no_tp_serve", card=card, arch=arch,
+            act_rules="NO_TP_ACT_RULES", wall_s=[r["no_tp"]["wall_s"]
+                                                 for r in recs],
+            prefill_s=n0["prefill_s"],
+            decode_ms_median=dec_no_tp[len(dec_no_tp) // 2] * 1e3,
+            decode_ms_p90=dec_no_tp[int(0.9 * (len(dec_no_tp) - 1))] * 1e3,
+            peak_per_rank=[r["no_tp"]["peak"] for r in recs],
+            comm_bytes_per_rank_by_kind={
+                k: [r["no_tp"]["comm"].get(k, {}).get("bytes", 0)
+                    for r in recs] for k in n0["comm"]},
+            completions_equal_act_rules=n0["completions"]
+            == r0["completions"])
+        if any(r["no_tp"]["completions"] != n0["completions"]
+               for r in recs):
+            raise AssertionError(f"(d6) {arch}: ranks differ in their "
+                                 "completions without TP")
+        log("distributed_tp_serve", card=card, arch=arch,
+            mesh=list(DIST_MESH), act_rules="ACT_RULES", impl=impl,
+            layers=cfg.num_layers, requests=DIST_SERVE_REQUESTS,
+            prompt_tokens=SERVE_PROMPT, new_tokens=DIST_SERVE_NEW,
+            init_s=r0["init_s"], wall_s=[r["wall_s"] for r in recs],
+            prefill_s=r0["prefill_s"], decode_steps=len(dec),
+            decode_ms_median=dec[len(dec) // 2] * 1e3,
+            decode_ms_p90=dec[int(0.9 * (len(dec) - 1))] * 1e3,
+            peak_per_rank=[r["peak"] for r in recs],
+            param_bytes_per_rank=[r["local_param_bytes"] for r in recs],
+            comm_bytes_per_rank_by_kind=comm,
+            prefill_flops_per_rank_act_rules=[r["flops"]["act_rules"]
+                                              for r in recs],
+            prefill_flops_per_rank_no_tp=[r["flops"]["no_tp"] for r in recs],
+            no_tp_over_act_rules=ratio, min_ratio=TP_FLOPS_MIN_RATIO,
+            model_flops_over_chips=model_flops / DIST_WORLD,
+            cache_specs=r0["cache_specs"][:3],
+            kernel_local_shapes=got_shapes,
+            first_token_logit_max_abs_diff=diff, tol=tol,
+            first_token_mesh=tok_mesh.tolist(),
+            first_token_one_process=tok_one.tolist(),
+            decided=decided.tolist(), launches_per_rank=[
+                {k: r["launches"][k] for k in kernels} for r in recs])
+        if not diff <= tol or bool((decided & (tok_mesh != tok_one)).any()):
+            raise AssertionError(f"(d6) {arch}: first-token logits off by "
+                                 f"{diff} (tol {tol})")
+        if min(ratio) < TP_FLOPS_MIN_RATIO:
+            raise AssertionError(f"(d6) {arch}: a rank's prefill FLOPs fell "
+                                 f"by {ratio} only under TP")
+        check_tp_kernels(arch, r0["kernel_inputs"], total, card)
+    return total
+
+
 def check_dist_compress(res, card) -> None:
     c = [r["compress"] for r in res]
     log("distributed_compressed_psum", card=card, mesh=[2, 2],
@@ -3842,6 +4261,7 @@ def run_distributed(card: str) -> dict:
         devices=[r["device"] for r in res],
         ep_s=res[0]["ep"]["phase_s"], train_s=res[0]["train_phase_s"],
         serve_s=res[0]["serve_phase_s"],
+        tp_serve_s=res[0]["tp_serve_phase_s"],
         ep_param_bytes_per_rank=[r["ep"]["local_param_bytes"] for r in res])
     if any(not r["device"].startswith(DEVICE) for r in res):
         raise AssertionError(f"distributed: a rank ran on "
@@ -3853,8 +4273,11 @@ def run_distributed(card: str) -> dict:
     t1 = time.perf_counter()
     for k, n in check_dist_serve(res, card, plan).items():
         launches[k] += n
+    t2 = time.perf_counter()
+    for k, n in check_dist_tp_serve(res, card).items():
+        launches[k] = launches.get(k, 0) + n
     log("distributed_parent", card=card, train_check_s=t1 - t0,
-        serve_check_s=time.perf_counter() - t1)
+        serve_check_s=t2 - t1, tp_serve_check_s=time.perf_counter() - t2)
     del res
     t0 = time.perf_counter()
     (nccl,) = mesh_mod.spawn(nccl_rank_main, 1, backend="nccl",
@@ -4006,9 +4429,11 @@ def main() -> int:
         log("elapsed", after="train", seconds=time.perf_counter() - started)
     if "distributed" in PHASES:
         dist = run_distributed(smi)
+        # The flash row of the CUDA-core route is the examples' own.
         for row in kernels:
-            if row["name"] == "gmm":
-                row["launches"] += dist["gmm"]
+            if row["name"] in dist and row["source"].endswith(
+                    ("_wgmma.cu", "_tc.cu", "_tma.cu")):
+                row["launches"] += dist[row["name"]]
         log("elapsed", after="distributed",
             seconds=time.perf_counter() - started)
     if "examples" in PHASES:

@@ -27,6 +27,7 @@ functions whose backward is the matching collective:
   ``gather``          all-gather along a dim      the rank's chunk
   ``copy_in``         identity                    all-reduce (sum)
   ``reduce_out``      all-reduce (sum)            identity
+  ``reduce_scatter``  sum, the rank's chunk       all-gather of the chunks
   ``all_to_all``      exchange of dim-0 chunks    the inverse exchange
   ``gather_param``    all-gather of a shard       reduce-scatter (+ sums)
   ==================  ==========================  =======================
@@ -448,6 +449,18 @@ class _ReduceOut(torch.autograd.Function):
         return g, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axis):
+        ctx.args = (dim, mesh, axis)
+        return _reduce_scatter(x, dim, mesh, axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, mesh, axis = ctx.args
+        return _all_gather(g.contiguous(), dim, mesh, axis), None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
@@ -487,6 +500,13 @@ def reduce_out(x, mesh, axes: Sequence[str]):
     """Sum over ``axes`` of per-rank parts into a whole; the backward
     hands each rank the gradient of the whole (Megatron's g)."""
     return _ReduceOut.apply(x, mesh, tuple(axes))
+
+
+def reduce_scatter(x, dim: int, mesh, axis: str):
+    """The rank's chunk along ``dim`` of the sum over ``axis`` of the
+    ranks' partial tensors; the backward hands each rank the gradient of
+    the whole sum (the chunks' gradients all-gathered)."""
+    return _ReduceScatter.apply(x, dim, mesh, axis)
 
 
 def all_to_all(x, mesh, axis: str):

@@ -9,9 +9,14 @@ step with the whole global batch; the step keeps the rank's rows over
 the axes ``batch_shardings`` puts the batch on (``(pod, data)`` where
 the batch divides them, else ``data``, else none), pod-major as the
 reference's ``NamedSharding`` lays them out, and the model's parameters
-are DTensors placed by ``sharding.rules`` (``model_shardings``). The
-serving steps run under ``torch.inference_mode()`` and return the rank's
-rows of the logits and its caches; the train step differentiates
+are DTensors placed by ``sharding.rules`` (``model_shardings``). Each
+step installs its activation rules (``act_rules``: the reference's
+``ACT_RULES`` on the mesh by default, or any rule set such as the
+hillclimb's ``FSDP_ACT_RULES`` or ``ZERO16_ACT_RULES``), and the model
+runs the tensor parallelism they give on ``"model"``. The serving steps
+run under ``torch.inference_mode()`` and return the rank's rows of the
+logits (gathered over the vocabulary) and its caches (laid out as
+``cache_shardings`` gives); the train step differentiates
 ``forward_train`` with autograd and updates the model in place, on every
 rank.
 """
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import shard_map as sm
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import KVCache
@@ -85,7 +91,7 @@ def batch_shardings(cfg: ArchConfig, mesh, kind: str, batch: int,
         dp = dp_axes_for(batch, mesh)
     dp = shrules.entry(dp)
     out = {}
-    if cfg.input_mode == "embeddings" and kind != "decode":
+    if kind != "decode" and cfg.input_mode == "embeddings":
         out["embeds"] = (dp, None, None)
         if cfg.rope == "mrope":
             out["mrope_positions"] = (None, dp, None)
@@ -96,36 +102,55 @@ def batch_shardings(cfg: ArchConfig, mesh, kind: str, batch: int,
     return out
 
 
-def cache_shardings(caches: list, mesh) -> list:
-    """The reference's layout of each layer's decode cache (its leaves
-    without the stacked layers axis): batch over the batch axes, KV heads
-    or the sequence, RWKV heads or the RG-LRU width over ``"model"``.
-    The port keeps a rank's caches whole over ``"model"`` (no activation
-    tensor parallelism); this is the layout that port would take."""
-    tp = shrules.mesh_shape(mesh).get("model", 1)
+def cache_shardings(caches: list, mesh,
+                    act_rules: Optional[dict] = None) -> list:
+    """The layout of each layer's decode cache (whole-batch caches, as
+    ``transformer.init_cache`` makes them; the specs of its leaves,
+    without the reference's stacked layers axis), as the port's steps
+    place them under ``act_rules`` (``rules.activation_rules(mesh)`` by
+    default): the batch over the axes the decode step splits it on; the
+    KV heads over ``"model"`` where they divide, else the slots where
+    they divide (``attention.cache_split``); the RWKV heads
+    (``heads``) and the RG-LRU width (``ff``) over ``"model"`` where the
+    rules split them. Under the reference's ``ACT_RULES`` this is the
+    reference's ``cache_shardings``; ``local_shape`` gives a rank's
+    leaves."""
+    rules = act_rules or shrules.activation_rules(mesh)
 
-    def strip(spec):
-        return tuple(spec[1:])
+    def on_model(axis, size, split):
+        return "model" if common.model_split(
+            axis, size, rules=rules, mesh=mesh, split=split) else None
 
     def leaf(node):
+        split = batch_axes(None, mesh, "decode", node[0].shape[0], rules)
+        dp = shrules.entry(split)
         if isinstance(node, KVCache):
-            return KVCache(
-                strip(shrules.cache_pspec((1,) + tuple(node.k.shape), mesh)),
-                strip(shrules.cache_pspec((1,) + tuple(node.v.shape), mesh)),
-                ())
+            _, size, hkv, _ = node.k.shape
+            how = attn_mod.cache_split(hkv, size, rules=rules, mesh=mesh,
+                                       split=split)
+            spec = (dp, "model" if how == "seq" else None,
+                    "model" if how == "kv" else None, None)
+            return KVCache(spec, spec, ())
         if isinstance(node, RwkvState):
-            dp = shrules.entry(dp_axes_for(node.wkv.shape[0], mesh))
-            h = node.wkv.shape[1]
-            hs = "model" if tp > 1 and h % tp == 0 else None
+            hs = on_model("heads", node.wkv.shape[1], split)
             return RwkvState((dp, hs, None, None), (dp, None), (dp, None))
         if isinstance(node, RglruState):
-            dp = shrules.entry(dp_axes_for(node.h.shape[0], mesh))
-            w = node.h.shape[-1]
-            ws = "model" if tp > 1 and w % tp == 0 else None
+            ws = on_model("ff", node.h.shape[-1], split)
             return RglruState((dp, ws), (dp, None, ws))
         raise TypeError(type(node))
 
     return [leaf(c) for c in caches]
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """A rank's shape of a tensor of ``shape`` laid out as ``spec``."""
+    out = []
+    for n, entry in zip(shape, spec):
+        for a in () if entry is None else \
+                entry if isinstance(entry, tuple) else (entry,):
+            n //= sm.axis_size(mesh, a)
+        out.append(n)
+    return tuple(out)
 
 
 def _split_microbatches(batch: dict, micro: int) -> list[dict]:
@@ -316,15 +341,18 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int,
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, batch_size: int, *, mesh=None):
+def make_decode_step(cfg: ArchConfig, batch_size: int, *, mesh=None,
+                     act_rules: Optional[dict] = None):
     """``decode_step(model, tokens (B, 1), caches, position) -> (logits,
     caches)``; the attention caches are updated in place. Under ``mesh``
     the tokens are the global batch's, the caches and the logits the
     rank's rows, split over the axes in ``decode_step.batch_axes``
-    (``()`` without a mesh)."""
+    (``()`` without a mesh), the caches laid out as ``cache_shardings``
+    gives under ``act_rules`` (``rules.activation_rules(mesh)`` by
+    default; the prefill step must run the same rules)."""
     axes = ()
     if mesh is not None:
-        act_rules = shrules.activation_rules(mesh)
+        act_rules = act_rules or shrules.activation_rules(mesh)
         axes = batch_axes(cfg, mesh, "decode", batch_size, act_rules)
 
     def decode_step(model, tokens, caches, position: int):

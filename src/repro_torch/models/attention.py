@@ -10,6 +10,19 @@ layers keep a rolling cache of ``window`` slots, token j in slot
 j % window. Decode writes the new token into the cache in place (the
 reference returned an updated copy); the returned cache holds the same
 tensors.
+
+Tensor parallelism (a step whose rules split ``heads`` over
+``"model"``): ``wq``/``bq`` are column-parallel on the rank's heads,
+``wk``/``wv``/``bk``/``bv`` on its KV heads where those divide too, else
+whole on every model rank (their gradients then summed over
+``"model"``: each rank's query heads use them for other work), and
+``wo`` is row-parallel. Each local query head attends to its own KV
+head (``_local_kv``). The decode cache follows ``rules.cache_pspec``:
+the rank's KV heads where they split, else, where the cache's slots
+divide over the model ranks, the rank's block of slots (``cache_split``).
+On a slot-split cache each rank writes the slots it owns, and decode
+attends every head over the rank's slots and merges the ranks' partial
+softmaxes by log-sum-exp over ``"model"`` (``_merge_partials``).
 """
 from __future__ import annotations
 
@@ -17,8 +30,10 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import shard_map as sm
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, zeros_init
@@ -30,6 +45,9 @@ class KVCache(NamedTuple):
     k: torch.Tensor          # (B, S_cache, Hkv, Dh)
     v: torch.Tensor
     length: int              # tokens currently in the cache
+    # All the slots, where the rank holds a block of them over "model"
+    # (``cache_split`` "seq"); 0 where the rank holds every slot.
+    slots: int = 0
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -50,14 +68,59 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return p
 
 
-def _project_qkv(params, x, cfg: ArchConfig, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+class Layout(NamedTuple):
+    """How a step's rules place attention on the model ranks."""
+    heads: bool              # query heads split over "model"
+    kv: bool                 # KV heads split too
+    tp: int
+    rank: int
+
+
+def layout(cfg: ArchConfig) -> Layout:
+    heads = common.model_split("heads", cfg.num_heads)
+    kv = heads and common.model_split("kv_heads", cfg.num_kv_heads)
+    return Layout(heads, kv, common.tp_size(), common.tp_rank())
+
+
+def cache_split(kv_heads: int, size: int, **given) -> Optional[str]:
+    """How a decode cache of ``size`` slots and ``kv_heads`` KV heads lies
+    over ``"model"``: ``"kv"`` (the rank's KV heads), ``"seq"`` (the
+    rank's block of slots) or None (whole), as ``rules.cache_pspec``
+    places it where the rules put heads on ``"model"``. The running
+    step's rules unless ``given`` (``rules``, ``mesh``, ``split``). (KV
+    heads that divide imply query heads that do: they are a multiple.)"""
+    if not common.model_split("heads", 0, **given):
+        # (Size 0 divides: the rules keep attention whole on "model".)
+        return None
+    if common.model_split("kv_heads", kv_heads, **given):
+        return "kv"
+    return "seq" if common.model_split("heads", size, **given) else None
+
+
+def _kv_grad(lay: Layout) -> str:
+    """How the gradient of a whole KV weight meets over "model": summed
+    where the ranks' query heads differ, averaged where all do the same."""
+    return "sum" if lay.heads else "mean"
+
+
+def _project_qkv(params, x, cfg: ArchConfig, positions, lay: Layout):
+    """q on the rank's heads; k, v on its KV heads, or all of them."""
+    if lay.heads:
+        x = common.enter_tp(x)
+    qd = 1 if lay.heads else None
+    kd = 1 if lay.kv else None
+    kg = _kv_grad(lay)
+    q = torch.einsum("bsd,dhk->bshk", x, common.tp_weight(params["wq"], qd))
+    k = torch.einsum("bsd,dhk->bshk", x,
+                     common.tp_weight(params["wk"], kd, grad=kg))
+    v = torch.einsum("bsd,dhk->bshk", x,
+                     common.tp_weight(params["wv"], kd, grad=kg))
     if cfg.qkv_bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+        q = q + common.tp_weight(params["bq"], None if qd is None else 0)
+        k = k + common.tp_weight(params["bk"], None if kd is None else 0,
+                                 grad=kg)
+        v = v + common.tp_weight(params["bv"], None if kd is None else 0,
+                                 grad=kg)
     if cfg.rope == "rope":
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
@@ -66,7 +129,37 @@ def _project_qkv(params, x, cfg: ArchConfig, positions):
                                cfg.rope_theta)
         k = common.apply_mrope(k, positions, cfg.mrope_sections,
                                cfg.rope_theta)
+    q = common.shard(q, ("batch", "seq", "heads", None), heads=cfg.num_heads)
+    k = common.shard(k, ("batch", "seq", "kv_heads", None),
+                     kv_heads=cfg.num_kv_heads)
+    v = common.shard(v, ("batch", "seq", "kv_heads", None),
+                     kv_heads=cfg.num_kv_heads)
     return q, k, v
+
+
+def _local_kv(k, v, cfg: ArchConfig, lay: Layout):
+    """The KV heads the rank's query heads attend to, in the grouping the
+    attention routines read (local query head i to KV head i // groups):
+    k and v as they are unless the query heads are split and the KV heads
+    are not; then the one KV head the rank's heads share, or the KV heads
+    of whole groups, or one KV head copied per query head."""
+    if not lay.heads or lay.kv:
+        return k, v
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    hl, g = h // lay.tp, h // hkv
+    a = lay.rank * hl
+    lo, hi = a // g, (a + hl - 1) // g + 1
+    if hi - lo == 1 or (hl % g == 0 and a % g == 0):
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = (a + torch.arange(hl, device=k.device)) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _out_proj(params, out, lay: Layout):
+    """``wo``: row-parallel on the rank's heads under TP."""
+    y = torch.einsum("bshk,hkd->bsd", out,
+                     common.tp_weight(params["wo"], 0 if lay.heads else None))
+    return common.leave_tp(y) if lay.heads else y
 
 
 def _sdpa(q, k, v, *, causal: bool, window: int = 0,
@@ -200,33 +293,70 @@ def _attend(q, k, v, *, window: int, impl: str):
 def attention(params, x, cfg: ArchConfig, positions, *,
               window: int = 0, impl: str = "reference") -> torch.Tensor:
     """Full-sequence (train / prefill) attention."""
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    out = _attend(q, k, v, window=window, impl=impl)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    lay = layout(cfg)
+    q, k, v = _project_qkv(params, x, cfg, positions, lay)
+    out = _attend(q, *_local_kv(k, v, cfg, lay), window=window, impl=impl)
+    out = common.shard(out, ("batch", "seq", "heads", None),
+                       heads=cfg.num_heads)
+    return _out_proj(params, out, lay)
 
 
 def attention_prefill(params, x, cfg: ArchConfig, positions, *,
                       cache_len: int, window: int = 0,
                       impl: str = "reference"):
-    """Prefill: run full attention and build the KV cache."""
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    out = _attend(q, k, v, window=window, impl=impl)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    """Prefill: run full attention and build the KV cache (the rank's
+    part of it, as ``cache_split`` places it)."""
+    lay = layout(cfg)
+    q, k, v = _project_qkv(params, x, cfg, positions, lay)
+    out = _attend(q, *_local_kv(k, v, cfg, lay), window=window, impl=impl)
+    y = _out_proj(params, out, lay)
     b, s = x.shape[0], x.shape[1]
     size = min(window, cache_len) if window else cache_len
-    kc = k.new_zeros((b, size) + tuple(k.shape[2:]))
-    vc = v.new_zeros((b, size) + tuple(v.shape[2:]))
+    # The slots the rank keeps: all of them, or its block of them.
+    seq = cache_split(cfg.num_kv_heads, size) == "seq"
+    count = size // lay.tp if seq else size
+    g = lay.rank * count * seq + torch.arange(count, device=x.device)
     if window and s > size:
         # Rolling layout: token j lives at slot j % window, so the next
-        # decode step (slot position % window) overwrites the oldest entry.
-        slots = torch.arange(s - size, s, device=x.device) % size
-        kc[:, slots] = k[:, -size:]
-        vc[:, slots] = v[:, -size:]
+        # decode step (slot position % window) overwrites the oldest
+        # entry; slot g holds the last token j < s with j % size == g.
+        tok = g + size * torch.div(s - 1 - g, size, rounding_mode="floor")
+        keep = torch.ones_like(g, dtype=torch.bool)
     else:
-        n = min(s, size)
-        kc[:, :n] = k[:, :n]
-        vc[:, :n] = v[:, :n]
-    return y, KVCache(kc, vc, min(s, size))
+        tok, keep = g, g < min(s, size)
+    kc = k.new_zeros((b, count) + tuple(k.shape[2:]))
+    vc = v.new_zeros((b, count) + tuple(v.shape[2:]))
+    kc[:, keep] = k[:, tok[keep]]
+    vc[:, keep] = v[:, tok[keep]]
+    return y, KVCache(kc, vc, min(s, size), size if seq else 0)
+
+
+def _partial(q, k, v, valid):
+    """One rank's part of decode attention over its slots: the running
+    max m, the sum of exponentials l and the unnormalised output acc of
+    every query head (float32). q: (B, 1, H, Dh); k, v: (B, L, Hkv, Dh);
+    valid: (L,) bool."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) / math.sqrt(dh)
+    logits = torch.where(valid, logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    return m, p.sum(dim=-1), acc
+
+
+def _merge_partials(m, l, acc, mesh):
+    """The softmax over every rank's slots from the ranks' partials: each
+    rescaled to the global max (log-sum-exp) before the sums over
+    ``"model"``."""
+    top = sm.all_reduce(m, mesh, "model", op=dist.ReduceOp.MAX)
+    scale = torch.exp(m - top)
+    num = sm.all_reduce(acc * scale[..., None], mesh, "model")
+    den = sm.all_reduce(l * scale, mesh, "model")
+    return num / den[..., None]
 
 
 def attention_decode(params, x, cfg: ArchConfig, position: int,
@@ -240,14 +370,35 @@ def attention_decode(params, x, cfg: ArchConfig, position: int,
     else:
         pos = torch.full((b, 1), position, dtype=torch.int32,
                          device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, pos)
-    size = cache.k.shape[1]
+    lay = layout(cfg)
+    q, k, v = _project_qkv(params, x, cfg, pos, lay)
+    local = cache.k.shape[1]
+    size = cache.slots or local
     slot = position % size if window else min(position, size - 1)
-    cache.k[:, slot] = k[:, 0]
-    cache.v[:, slot] = v[:, 0]
     new_len = min(cache.length + 1, size)
-    # Rolling window caches are position-scrambled; attention over a window
-    # is permutation-invariant given the causal validity mask.
-    out = _sdpa(q, cache.k, cache.v, causal=False, kv_length=new_len)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, KVCache(cache.k, cache.v, new_len)
+    if not cache.slots:
+        cache.k[:, slot] = k[:, 0]
+        cache.v[:, slot] = v[:, 0]
+        # Rolling window caches are position-scrambled; attention over a
+        # window is permutation-invariant given the causal validity mask.
+        out = _sdpa(q, *_local_kv(cache.k, cache.v, cfg, lay),
+                    causal=False, kv_length=new_len)
+        return _out_proj(params, out, lay), KVCache(cache.k, cache.v,
+                                                    new_len)
+    # Slot-split cache: the owner writes the slot; every rank attends all
+    # heads over its slots, and the partials merge over "model".
+    first = lay.rank * local
+    if first <= slot < first + local:
+        cache.k[:, slot - first] = k[:, 0]
+        cache.v[:, slot - first] = v[:, 0]
+    _, mesh, _ = common.installed_rules()
+    q_all = sm.gather(q, 2, mesh, "model") if lay.heads else q
+    valid = first + torch.arange(local, device=x.device) < new_len
+    out = _merge_partials(*_partial(q_all, cache.k, cache.v, valid), mesh)
+    h, dh = cfg.num_heads, q.shape[-1]
+    out = out.movedim(-2, 1).reshape(b, 1, h, dh).to(q.dtype)
+    if lay.heads:
+        hl = h // lay.tp
+        out = out[:, :, lay.rank * hl:(lay.rank + 1) * hl]
+    return _out_proj(params, out, lay), KVCache(cache.k, cache.v, new_len,
+                                                size)

@@ -15,11 +15,17 @@ parity tests load the reference's weights through ``models.convert``.
 A generator of ``None`` makes shapes only (on the ``meta`` device):
 ``transformer.param_axes`` reads the axes of a full-size config so.
 
-``shard`` is the reference's activation constraint. The port has no
-activation tensor parallelism (the ranks of ``"model"`` compute the
-dense layers of one batch shard each whole), so under a mesh it checks
-what the rules leave to check: that an activation holds the rank's
-batch shard.
+``shard`` is the reference's activation constraint. Under a mesh the
+port runs the reference's activation tensor parallelism on ``"model"``:
+a logical axis whose installed act rule maps it to ``"model"`` is split
+over the model ranks where its size divides their count (the reference's
+``rules.pspec_for`` degradation; none where the batch is split over
+``"model"`` itself). ``model_split`` answers that question, ``tp_weight``
+fetches the rank's column- or row-parallel slice of a weight (its
+``"model"`` shard, FSDP axes gathered) or a weight whole, and
+``enter_tp``/``leave_tp`` are Megatron's f and g around the split work.
+``shard`` then checks that an activation holds the rank's share of every
+axis: the batch and each split axis.
 """
 from __future__ import annotations
 
@@ -147,26 +153,113 @@ def gather_param(p, mesh, **kwargs):
     return sm.gather_param(p, mesh, split=batch_split(mesh), **kwargs)
 
 
-def shard(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
+def installed_rules() -> tuple:
+    """(act rules, mesh, batch split) of the running step; ``({}, None,
+    ())`` outside one."""
+    mesh = _ACTIVE["mesh"]
+    if not _ACTIVATION_RULES or mesh is None:
+        return {}, None, ()
+    return _ACTIVATION_RULES, mesh, batch_split(mesh)
+
+
+def model_split(axis: str, size: int, *, rules=None, mesh=None,
+                split=None) -> bool:
+    """Whether logical ``axis`` of size ``size`` is split over
+    ``"model"``: the rules map it there, the mesh has more than one model
+    rank, ``size`` divides over them and the batch is not split over
+    ``"model"`` already (a mesh axis takes one dim of a tensor). The
+    running step's rules, mesh and batch split unless given."""
+    if rules is None:
+        rules, mesh, split = installed_rules()
+    if mesh is None or not rules:
+        return False
+    from repro_torch.sharding import rules as shrules
+    tp = shrules.mesh_shape(mesh).get("model", 1)
+    want = rules.get(axis)
+    return (tp > 1 and "model" not in tuple(split or ())
+            and "model" in (want if isinstance(want, tuple) else (want,))
+            and size % tp == 0)
+
+
+def tp_size() -> int:
+    _, mesh, _ = installed_rules()
+    from repro_torch.core import shard_map as sm
+    return 1 if mesh is None else sm.axis_size(mesh, "model")
+
+
+def tp_rank() -> int:
+    _, mesh, _ = installed_rules()
+    from repro_torch.core import shard_map as sm
+    return 0 if mesh is None else sm.axis_index(mesh, "model")
+
+
+def tp_weight(p, dim: Optional[int] = None, *, grad: str = "mean"):
+    """The tensor a rank computes with from weight ``p``. With ``dim``,
+    the rank's slice of ``dim`` over ``"model"`` (column- or
+    row-parallel): the weight's own ``"model"`` shard where the
+    parameter rules put it on ``dim`` (its gradient stays the rank's),
+    else the whole weight cut (its gradient gathered back). Without
+    ``dim``, the whole weight; ``grad`` says how its gradient meets over
+    ``"model"``: ``"sum"`` where the model ranks use it for different
+    work (inside a split region), ``"mean"`` where they all do the same.
+    Outside a step a sharded weight is gathered whole, a plain tensor
+    returned as it is."""
+    from repro_torch.core import shard_map as sm
+    _, mesh, _ = installed_rules()
+    if mesh is None:
+        return gather_param(p, p.device_mesh) \
+            if isinstance(p, sm.DTensor) else p
+    if dim is None:
+        return gather_param(p, mesh, model=grad)
+    if isinstance(p, sm.DTensor):
+        spec = sm.spec_of(p)
+        if spec[dim % p.ndim] == "model":
+            return gather_param(p, mesh, keep=("model",))
+    return sm.split(gather_param(p, mesh), dim, mesh, "model")
+
+
+def enter_tp(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's f: ``x``, whole on every model rank, enters work the
+    model ranks split; the backward sums their parts of its gradient."""
+    _, mesh, _ = installed_rules()
+    from repro_torch.core import shard_map as sm
+    return sm.copy_in(x, mesh, "model")
+
+
+def leave_tp(y: torch.Tensor) -> torch.Tensor:
+    """Megatron's g: the model ranks' partial outputs of a row-parallel
+    product summed into the whole."""
+    _, mesh, _ = installed_rules()
+    from repro_torch.core import shard_map as sm
+    return sm.reduce_out(y, mesh, ("model",))
+
+
+def shard(x: torch.Tensor, logical_axes: tuple, **sizes) -> torch.Tensor:
     """The reference's sharding constraint by logical axes; a no-op
     without a mesh. Under a mesh ``x`` is the rank's local tensor: its
     ``batch`` dim must hold the global batch's share of the axes the
-    step split it over (``batch_split``: the rules' batch axes where they
-    divide it, as ``launch.steps.batch_shardings`` chooses)."""
-    mesh = _ACTIVE["mesh"]
-    if not _ACTIVATION_RULES or mesh is None or not _ACTIVE["batch"]:
+    step split it over (``batch_split``), and each other axis named in
+    ``sizes`` (its global size) the rank's share of it: the size over
+    the model ranks where ``model_split`` splits it, else all of it."""
+    rules, mesh, split = installed_rules()
+    if mesh is None or not _ACTIVE["batch"]:
         return x
     from repro_torch.core import shard_map as sm
     for dim, ax in zip(x.shape, logical_axes):
-        if ax != "batch":
+        if ax == "batch":
+            n = 1
+            for a in split:
+                n *= sm.axis_size(mesh, a)
+            want, full = _ACTIVE["batch"] // n, _ACTIVE["batch"]
+        elif ax in sizes:
+            full = sizes[ax]
+            want = full // sm.axis_size(mesh, "model") \
+                if model_split(ax, full) else full
+        else:
             continue
-        size = 1
-        for a in batch_split(mesh):
-            size *= sm.axis_size(mesh, a)
-        want = _ACTIVE["batch"] // size
         if dim != want:
-            raise ValueError(f"activation batch dim {dim}: the rank's shard "
-                             f"of batch {_ACTIVE['batch']} is {want}")
+            raise ValueError(f"activation {ax} dim {dim}: the rank's share "
+                             f"of {full} is {want}")
     return x
 
 

@@ -13,7 +13,12 @@ Two execution paths with identical math:
     ``"model"``. Decode (S = 1): every model rank dispatches the batch
     shard's tokens, runs its slice of the experts and combines against
     it, and the partial outputs are summed over ``"model"``. The aux loss
-    is averaged over every mesh axis.
+    is averaged over every mesh axis. Where the step splits the batch
+    over ``"model"`` too (``FSDP_ACT_RULES``), an all-to-all over
+    ``"model"`` first brings the data shard's rows of the rank's
+    sequence slice together (the reference's ``P(dp, "model")`` layout)
+    and a second takes the outputs back; decode gathers the data shard's
+    rows, runs the psum path and keeps the rank's.
 
 Routing: softmax router in float32, top-k per token (optionally
 renormalized, Qwen3), capacity C = ceil(k * T / E * capacity_factor)
@@ -25,7 +30,9 @@ capacity drop. Dispatch is k scatter-adds into an (E, C, D) buffer, the
 expert FFN runs on the stacked buffer (``moe_grouped_ffn``'s grouped-
 matmul kernel under ``use_kernel``, the model's ``impl="flash_moe"``;
 ``einsum`` otherwise), and the combine gathers back in float32 weighted
-by gate * keep. Shared experts (DeepSeekMoE) run densely beside them.
+by gate * keep. Shared experts (DeepSeekMoE) run densely beside them,
+through ``mlp`` (tensor-parallel on ``ff`` where the rules split it);
+the router stays whole on every model rank.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.core import shard_map as sm
 from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import ref as kref
+from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (batch_split, dense_init,
                                        gather_param, silu)
 
@@ -165,12 +173,7 @@ def moe_layer(params, x, cfg: ArchConfig, *, mesh=None,
     else:
         y, aux = _single(params, x, cfg, use_kernel)
     if mo.num_shared_experts:
-        sp = {k: gather_param(v, mesh) if mesh is not None else v
-              for k, v in ((k, params["shared"][k])
-                           for k in ("w_gate", "w_up", "w_down"))}
-        gate = torch.einsum("bsd,df->bsf", x, sp["w_gate"])
-        up = torch.einsum("bsd,df->bsf", x, sp["w_up"])
-        y = y + torch.einsum("bsf,fd->bsd", silu(gate) * up, sp["w_down"])
+        y = y + mlp_mod.mlp(params["shared"], x)
     return y, aux
 
 
@@ -243,52 +246,48 @@ def _moe_ep(params, x, cfg: ArchConfig, mesh, norm_topk: bool,
     dispatch buffers exchanged with two all_to_alls (GShard EP).
     Decode (S=1): dispatch is computed per data-shard, each model rank runs
     its expert slice, partial combines are summed over 'model' -- no
-    all_to_all on a 1-token sequence.
+    all_to_all on a 1-token sequence. A batch split over 'model' as well
+    is brought into that layout first and back after.
     """
     mo = cfg.moe
     tp = sm.axis_size(mesh, "model")
     if mo.num_experts % tp:
         raise ValueError(f"{mo.num_experts} experts over {tp} model ranks")
     split = batch_split(mesh)
-    if "model" in split:
-        raise ValueError("the MoE's expert-parallel path splits tokens over "
-                         "'model' itself; a batch already split over "
-                         "'model' is not supported (ROADMAP C.6)")
     b, s, d = x.shape
     # Each model rank routes other tokens: the router's gradient is the
     # sum of the ranks' parts.
     wr = gather_param(params["w_router"], mesh, model="sum")
     experts = {k: _local_experts(params[k], mesh)
                for k in ("w_gate", "w_up", "w_down")}
+    rows_on_model = "model" in split and tp > 1
+    if rows_on_model and split[-1] != "model":
+        raise ValueError(f"a batch split over {split}: the expert-parallel "
+                         "layout (the reference's P(dp, 'model')) needs "
+                         "'model' as the innermost axis of the split")
 
     if s % tp == 0:
-        x_loc = sm.split(x, 1, mesh, "model")
-        bl, sl = b, s // tp
-        x2d = x_loc.reshape(bl * sl, d)
-        gates, idx, aux = _route({"w_router": wr}, x2d, mo, norm_topk)
-        cap = _capacity(bl * sl, mo)
-        xb, slot, keep = _dispatch(x2d, gates, idx, cap, mo.num_experts)
-        yb = _expert_ffn(experts, _to_experts(xb, mesh, tp), use_kernel)
-        yb = _from_experts(yb, mesh, tp)
-        y = _combine(yb, slot, keep, gates, x.dtype).reshape(bl, sl, d)
-        y = sm.gather(y, 1, mesh, "model")
+        if rows_on_model:
+            # (b, S) rows of the rank -> (tp*b, S/tp): the data shard's
+            # rows, the rank's sequence slice, rows in model-rank order.
+            send = x.reshape(b, tp, s // tp, d).transpose(0, 1)
+            x_loc = sm.all_to_all(send.contiguous(), mesh, "model").reshape(
+                tp * b, s // tp, d)
+        else:
+            x_loc = sm.split(x, 1, mesh, "model")
+        y, aux = _ep_all_to_all(wr, experts, x_loc, mo, mesh, tp, norm_topk,
+                                use_kernel)
+        if rows_on_model:
+            back = sm.all_to_all(y.reshape(tp, b, s // tp, d), mesh, "model")
+            y = back.transpose(0, 1).reshape(b, s, d)
+        else:
+            y = sm.gather(y, 1, mesh, "model")
     else:
-        x2d = sm.copy_in(x, mesh, "model").reshape(b * s, d)
-        gates, idx, aux = _route({"w_router": wr}, x2d, mo, norm_topk)
-        cap = _capacity(b * s, mo)
-        xb, slot, keep = _dispatch(x2d, gates, idx, cap, mo.num_experts)
-        e_local = mo.num_experts // tp
-        rank = sm.axis_index(mesh, "model")
-        yb_loc = _expert_ffn(experts,
-                             xb[rank * e_local:(rank + 1) * e_local],
-                             use_kernel)
-        # Partial combine against the local expert slice only, then
-        # reduce partial token outputs across the model axis.
-        lo, hi = rank * e_local * cap, (rank + 1) * e_local * cap
-        in_range = (slot >= lo) & (slot < hi)
-        y = _combine(yb_loc, torch.where(in_range, slot - lo, 0),
-                     keep & in_range, gates, torch.float32)
-        y = sm.reduce_out(y, mesh, ("model",)).to(x.dtype).reshape(b, s, d)
+        xs = sm.gather(x, 0, mesh, "model") if rows_on_model else x
+        y, aux = _ep_psum(wr, experts, xs, mo, mesh, tp, norm_topk,
+                          use_kernel)
+        if rows_on_model:
+            y = sm.split(y, 0, mesh, "model")
     # The mean of the distinct shards' terms: ranks that hold the same
     # rows add theirs once.
     same = tuple(a for a in sm.dp_axes(mesh) if a not in split)
@@ -298,3 +297,43 @@ def _moe_ep(params, x, cfg: ArchConfig, mesh, norm_topk: bool,
         shards //= sm.axis_size(mesh, a)
     aux = sm.reduce_out(aux, mesh, axes) / shards
     return y, aux
+
+
+def _ep_all_to_all(wr, experts, x_loc, mo: MoEConfig, mesh, tp: int,
+                   norm_topk: bool, use_kernel: bool):
+    """The rank's (data shard, sequence slice) routed with its own
+    capacity, its dispatch buffers exchanged with the experts' ranks and
+    back: (y of x_loc's shape, aux)."""
+    bl, sl, d = x_loc.shape
+    x2d = x_loc.reshape(bl * sl, d)
+    gates, idx, aux = _route({"w_router": wr}, x2d, mo, norm_topk)
+    cap = _capacity(bl * sl, mo)
+    xb, slot, keep = _dispatch(x2d, gates, idx, cap, mo.num_experts)
+    yb = _expert_ffn(experts, _to_experts(xb, mesh, tp), use_kernel)
+    yb = _from_experts(yb, mesh, tp)
+    y = _combine(yb, slot, keep, gates, x_loc.dtype).reshape(bl, sl, d)
+    return y, aux
+
+
+def _ep_psum(wr, experts, x, mo: MoEConfig, mesh, tp: int, norm_topk: bool,
+             use_kernel: bool):
+    """Every model rank dispatches all of ``x``'s tokens, runs its slice
+    of the experts and combines against it; the partial outputs are
+    summed over "model": (y, aux)."""
+    b, s, d = x.shape
+    x2d = sm.copy_in(x, mesh, "model").reshape(b * s, d)
+    gates, idx, aux = _route({"w_router": wr}, x2d, mo, norm_topk)
+    cap = _capacity(b * s, mo)
+    xb, slot, keep = _dispatch(x2d, gates, idx, cap, mo.num_experts)
+    e_local = mo.num_experts // tp
+    rank = sm.axis_index(mesh, "model")
+    yb_loc = _expert_ffn(experts, xb[rank * e_local:(rank + 1) * e_local],
+                         use_kernel)
+    # Partial combine against the local expert slice only, then reduce
+    # partial token outputs across the model axis.
+    lo, hi = rank * e_local * cap, (rank + 1) * e_local * cap
+    in_range = (slot >= lo) & (slot < hi)
+    y = _combine(yb_loc, torch.where(in_range, slot - lo, 0),
+                 keep & in_range, gates, torch.float32)
+    return sm.reduce_out(y, mesh, ("model",)).to(x.dtype).reshape(b, s, d), \
+        aux

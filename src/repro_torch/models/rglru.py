@@ -17,6 +17,18 @@ that autograd differentiates (training runs this route). ``scan_impl``
 chunks, ``chunked_block`` the whole block per chunk. The sequential
 ``kernels.ref.rglru_scan_ref`` stays the oracle. Decode carries (h, conv
 tail) state.
+
+Tensor parallelism (a step whose rules split ``ff``, the LRU width W,
+over ``"model"``): ``w_in_rnn``, ``w_in_gate``, the conv, ``lam`` and the
+gate biases on the rank's W/tp channels, ``w_out`` row-parallel, the
+state and the conv tail (B, W/tp) and (B, cw-1, W/tp), as
+``cache_shardings`` places them. ``gate_a``/``gate_x`` are (W, W)
+sharded on their rows (``("ff", None)``): each rank multiplies its
+channels of u by its rows, and one reduce-scatter over ``"model"`` of
+both gates' (B, S, 2, W) partial sums leaves each rank the whole sums of
+its channels (``_gates``). That keeps the weights where the parameter
+rules put them and moves (B, S, 2, W) float32 partials, where
+all-gathering u would move u and both whole (W, W) gates.
 """
 from __future__ import annotations
 
@@ -26,7 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import shard_map as sm
 from repro_torch.kernels import rglru_scan as scan_kernel
+from repro_torch.models import common
 from repro_torch.models.common import (Param, dense_init, init_device,
                                        zeros_init)
 
@@ -72,15 +86,48 @@ def _causal_conv(x, conv_w, conv_b, tail: Optional[torch.Tensor] = None):
     return out + conv_b, xp[:, -(cw - 1):]
 
 
+def _weights(params) -> dict:
+    """The block's weights as the rank computes with them, and ``split``:
+    whether the width is split over "model" (then the rank's W/tp
+    channels, the gates' rows among them, and ``w_out`` row-parallel)."""
+    w = params["lam"].shape[0]
+    split = common.model_split("ff", w)
+    col = 1 if split else None
+    row = 0 if split else None
+    out = {"split": split,
+           "w_in_rnn": common.tp_weight(params["w_in_rnn"], col),
+           "w_in_gate": common.tp_weight(params["w_in_gate"], col),
+           "conv_w": common.tp_weight(params["conv_w"], col),
+           "w_out": common.tp_weight(params["w_out"], row)}
+    for k in ("conv_b", "gate_a", "gate_a_b", "gate_x", "gate_x_b", "lam"):
+        out[k] = common.tp_weight(params[k], row)
+    return out
+
+
 def _gates(params, u):
-    """u: (B, S, W) conv output -> (log_a, x_in) both fp32."""
+    """u: (B, S, W) conv output -> (log_a, x_in) both fp32. Under TP u
+    holds the rank's channels and the gates their rows: the partial
+    products are summed over "model" into the rank's channels."""
     uf = u.float()
-    r = torch.sigmoid(uf @ params["gate_a"].float() + params["gate_a_b"])
-    i = torch.sigmoid(uf @ params["gate_x"].float() + params["gate_x_b"])
+    if params.get("split"):
+        both = torch.stack([uf @ params["gate_a"].float(),
+                            uf @ params["gate_x"].float()], dim=-2)
+        _, mesh, _ = common.installed_rules()
+        both = sm.reduce_scatter(both, -1, mesh, "model")
+        ga, gx = both.unbind(-2)
+    else:
+        ga = uf @ params["gate_a"].float()
+        gx = uf @ params["gate_x"].float()
+    r = torch.sigmoid(ga + params["gate_a_b"])
+    i = torch.sigmoid(gx + params["gate_x_b"])
     log_a = -RGLRU_C * F.softplus(params["lam"].float()) * r
     a = torch.exp(log_a)
     x_in = torch.sqrt(torch.clamp_min(1.0 - a.square(), 1e-12)) * (i * uf)
-    return log_a, x_in
+    return log_a.contiguous(), x_in.contiguous()
+
+
+def _out(params, y):
+    return common.leave_tp(y) if params.get("split") else y
 
 
 def _gelu(x):
@@ -124,6 +171,12 @@ def linear_scan_chunked(log_a, b, h0, chunk: int = 1024):
     return torch.cat(outs, dim=1), h
 
 
+def _enter(p, x):
+    """x as the block's branches take it: entering the split width's
+    work under TP."""
+    return common.enter_tp(x) if p["split"] else x
+
+
 def rglru_block(params, x, cfg: ArchConfig,
                 state: Optional[RglruState] = None, *,
                 use_kernel: bool = False):
@@ -131,12 +184,14 @@ def rglru_block(params, x, cfg: ArchConfig,
     if cfg.recurrent.scan_impl == "chunked_block" and state is None:
         return _rglru_block_chunked(params, x, cfg,
                                     chunk=max(cfg.recurrent.chunk, 256))
-    u = x @ params["w_in_rnn"]
-    gate = _gelu(x @ params["w_in_gate"])
+    p = _weights(params)
+    x = _enter(p, x)
+    w = params["lam"].shape[0]
+    u = common.shard(x @ p["w_in_rnn"], ("batch", "seq", "ff"), ff=w)
+    gate = _gelu(x @ p["w_in_gate"])
     conv_tail = state.conv if state is not None else None
-    u, new_tail = _causal_conv(u, params["conv_w"], params["conv_b"],
-                               conv_tail)
-    log_a, x_in = _gates(params, u)
+    u, new_tail = _causal_conv(u, p["conv_w"], p["conv_b"], conv_tail)
+    log_a, x_in = _gates(p, u)
     h0 = state.h if state is not None \
         else torch.zeros((x.shape[0], u.shape[-1]), dtype=torch.float32,
                          device=x.device)
@@ -147,8 +202,8 @@ def rglru_block(params, x, cfg: ArchConfig,
             log_a, x_in, h0, chunk=max(cfg.recurrent.chunk, 256))
     else:
         h_all, h_last = linear_scan(log_a, x_in, h0)
-    y = (h_all.to(x.dtype) * gate) @ params["w_out"]
-    return y, RglruState(h_last, new_tail)
+    y = (h_all.to(x.dtype) * gate) @ p["w_out"]
+    return _out(p, y), RglruState(h_last, new_tail)
 
 
 def _rglru_block_chunked(params, x, cfg: ArchConfig, chunk: int):
@@ -156,8 +211,10 @@ def _rglru_block_chunked(params, x, cfg: ArchConfig, chunk: int):
     output projection), the (h, conv tail) carry passed between chunks,
     so the fp32 gate and scan intermediates exist for one chunk at a
     time: O(B x chunk x W) instead of O(B x S x W)."""
+    p = _weights(params)
+    x = _enter(p, x)
     b, s, d = x.shape
-    w = cfg.recurrent.lru_width or d
+    w = p["lam"].shape[0]
     cw = cfg.recurrent.conv_width
     pad = (-s) % chunk
     if pad:
@@ -170,30 +227,30 @@ def _rglru_block_chunked(params, x, cfg: ArchConfig, chunk: int):
     ys = []
     for c in range(0, s + pad, chunk):
         x_c, valid_c = x[:, c:c + chunk], valid[:, c:c + chunk]
-        u = x_c @ params["w_in_rnn"]
-        gate = _gelu(x_c @ params["w_in_gate"])
-        u, tail = _causal_conv(u, params["conv_w"], params["conv_b"], tail)
-        log_a, x_in = _gates(params, u)
+        u = x_c @ p["w_in_rnn"]
+        gate = _gelu(x_c @ p["w_in_gate"])
+        u, tail = _causal_conv(u, p["conv_w"], p["conv_b"], tail)
+        log_a, x_in = _gates(p, u)
         log_a = torch.where(valid_c, log_a, 0.0)
         x_in = torch.where(valid_c, x_in, 0.0)
         h_all, h = linear_scan(log_a, x_in, h)
-        ys.append((h_all.to(x_c.dtype) * gate) @ params["w_out"])
+        ys.append((h_all.to(x_c.dtype) * gate) @ p["w_out"])
     y = torch.cat(ys, dim=1)[:, :s]
     # Conv tail for decode continuation: the last cw-1 REAL inputs (the
     # in-loop tail ends on padded positions).
-    tail = x[:, max(0, s - (cw - 1)):s] @ params["w_in_rnn"]
+    tail = x[:, max(0, s - (cw - 1)):s] @ p["w_in_rnn"]
     if tail.shape[1] < cw - 1:
         tail = F.pad(tail, (0, 0, cw - 1 - tail.shape[1], 0))
-    return y, RglruState(h, tail.to(x.dtype))
+    return _out(p, y), RglruState(h, tail.to(x.dtype))
 
 
 def rglru_block_decode(params, x, cfg: ArchConfig, state: RglruState):
     """One-step decode: O(1) state. x: (B, 1, D)."""
-    u = x @ params["w_in_rnn"]
-    gate = _gelu(x @ params["w_in_gate"])
-    u, new_tail = _causal_conv(u, params["conv_w"], params["conv_b"],
-                               state.conv)
-    log_a, x_in = _gates(params, u)
+    p = _weights(params)
+    u = x @ p["w_in_rnn"]
+    gate = _gelu(x @ p["w_in_gate"])
+    u, new_tail = _causal_conv(u, p["conv_w"], p["conv_b"], state.conv)
+    log_a, x_in = _gates(p, u)
     h = torch.exp(log_a[:, 0]) * state.h + x_in[:, 0]
-    y = (h[:, None].to(x.dtype) * gate) @ params["w_out"]
-    return y, RglruState(h, new_tail)
+    y = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
+    return _out(p, y), RglruState(h, new_tail)

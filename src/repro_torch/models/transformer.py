@@ -12,11 +12,16 @@ list with one entry per layer (``KVCache``, ``RwkvState`` or
 ``RglruState``). Each takes a ``mesh``: then the model's parameters are
 DTensors placed by ``sharding.rules`` (``init_model(mesh=...)``,
 ``convert.from_reference(mesh=...)``), the batch and the caches are the
-rank's batch shard over ``(pod, data)``, every layer gathers its dense
-weights where it uses them (``common.gather_param``) and the MoE
-layers run the expert-parallel path. The ranks of ``"model"`` compute
-the dense layers of their batch shard whole: the reference's activation
-tensor parallelism (``ACT_RULES`` on heads, ff and vocab) is not ported.
+rank's rows, and the layers run the reference's activation tensor
+parallelism on ``"model"`` as the step's installed act rules place it
+(``common.model_split``): attention heads, the FFN's and the RG-LRU's
+width, RWKV heads and the vocabulary split over the model ranks, each
+weight fetched where it is used (``common.tp_weight``: the rank's slice,
+or the weight gathered whole), the MoE layers on the expert-parallel
+path. The embedding looks up the rank's vocabulary rows and sums over
+``"model"``; the LM head gives the rank's vocabulary columns, the loss
+is vocab-parallel (``_vocab_nll``: no rank holds (B, S, V) whole), and
+prefill and decode return the logits gathered over the vocabulary.
 The loss sums its numerator and its mask count over the batch axes
 before dividing, as the reference's global mean does.
 
@@ -50,9 +55,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import KVCache
+from repro_torch.models import common
 from repro_torch.models.common import (Params, batch_split, embed_init,
-                                       gather_param, ones_init, rms_norm,
-                                       shard, split_tree)
+                                       ones_init, rms_norm, shard,
+                                       split_tree, tp_weight)
 from repro_torch.sharding import rules as shrules
 
 PORTED_KINDS = ("attn", "local", "moe", "dense0", "rwkv", "rec")
@@ -261,28 +267,18 @@ def param_count(model: Model) -> int:
 # Sub-layer application (single layer, full-sequence or decode)
 # ---------------------------------------------------------------------------
 
-def gathered(p: Params, mesh) -> dict:
-    """A parameter group as nested dicts of the tensors a rank computes
-    with: each DTensor gathered whole (``common.gather_param``)."""
-    return {k: gathered(p[k], mesh) if isinstance(p[k], Params)
-            else gather_param(p[k], mesh) for k in p._keys}
-
-
 def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
                  mode: str, cache=None, cache_len: int = 0, position=None,
                  mesh=None):
     """Returns (x, aux, new_cache); ``aux`` is the MoE load-balance loss
     (a float32 scalar) or None, ``new_cache`` None in ``mode="train"``.
-    Under ``mesh`` the layer's weights are gathered here, where they are
-    used; a MoE layer's experts stay sharded (``moe_layer`` runs EP)."""
+    Under ``mesh`` each weight is fetched where it is used, by the
+    installed act rules (``common.tp_weight``); a MoE layer's experts
+    stay sharded (``moe_layer`` runs EP)."""
     kind = p.kind
-    if mesh is not None:
-        p = {k: p[k] if (kind == "moe" and k == "ffn")
-             else gathered(p[k], mesh) if isinstance(p[k], Params)
-             else gather_param(p[k], mesh) for k in p._keys}
     aux = None
     window = cfg.window if kind == "local" else 0
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = rms_norm(x, tp_weight(p["ln1"]), cfg.norm_eps)
     if kind in _ATTENTION_KINDS:
         new_cache = None
         if mode == "train":
@@ -296,7 +292,7 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
             a, new_cache = attn_mod.attention_decode(
                 p["attn"], h, cfg, position, cache, window=window)
         x = x + a
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h2 = rms_norm(x, tp_weight(p["ln2"]), cfg.norm_eps)
         if kind == "moe":
             f, aux = moe_mod.moe_layer(p["ffn"], h2, cfg, mesh=mesh,
                                        use_kernel=(impl == "flash_moe"))
@@ -313,7 +309,7 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
             a, new_cache = rwkv_mod.rwkv_time_mix(
                 p["tmix"], h, cfg, None, use_kernel=(impl == "flash"))
         x = x + a
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h2 = rms_norm(x, tp_weight(p["ln2"]), cfg.norm_eps)
         x_prev_c = new_cache.x_prev_c if mode == "decode" \
             else x.new_zeros((x.shape[0], x.shape[-1]))
         c = rwkv_mod.rwkv_channel_mix(p["cmix"], h2, x_prev_c)
@@ -326,7 +322,7 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
         a, new_cache = rglru_mod.rglru_block(
             p["rgl"], h, cfg, None, use_kernel=(impl == "flash"))
     x = x + a
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h2 = rms_norm(x, tp_weight(p["ln2"]), cfg.norm_eps)
     return x + mlp_mod.mlp(p["ffn"], h2), aux, \
         None if mode == "train" else new_cache
 
@@ -372,16 +368,35 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def _top(model: Model, name: str, mesh):
-    w = model[name]
-    return gather_param(w, mesh) if mesh is not None else w
+def _vocab_split(cfg: ArchConfig) -> bool:
+    return common.model_split("vocab", cfg.vocab_size)
 
 
-def _embed_inputs(model: Model, cfg: ArchConfig, batch: dict, mesh=None):
+def _vocab_range(n: int, ids):
+    """The rank's block of ``n`` vocabulary rows: ``ids`` as local rows
+    (clamped into it) and whether each lies inside."""
+    local = ids - common.tp_rank() * n
+    inside = (local >= 0) & (local < n)
+    return local.clamp(0, n - 1), inside
+
+
+def _embed_tokens(model: Model, cfg: ArchConfig, tokens):
+    """The embedding rows of ``tokens``; on a vocabulary split over
+    "model" each rank looks up the tokens of its rows (zeros elsewhere)
+    and the ranks' parts are summed."""
+    table = model["embed"]
+    if not _vocab_split(cfg):
+        return tp_weight(table)[tokens]
+    local = tp_weight(table, 0)
+    idx, inside = _vocab_range(local.shape[0], tokens)
+    return common.leave_tp(torch.where(inside[..., None], local[idx], 0))
+
+
+def _embed_inputs(model: Model, cfg: ArchConfig, batch: dict):
     if "embeds" in batch:
         x = batch["embeds"].to(cfg.activation_dtype)
     else:
-        x = _top(model, "embed", mesh)[batch["tokens"]].to(
+        x = _embed_tokens(model, cfg, batch["tokens"]).to(
             cfg.activation_dtype)
     x = shard(x, ("batch", "seq", "embed"))
     b, s = x.shape[0], x.shape[1]
@@ -395,11 +410,46 @@ def _embed_inputs(model: Model, cfg: ArchConfig, batch: dict, mesh=None):
     return x, positions
 
 
-def _lm_head(model: Model, cfg: ArchConfig, x, mesh=None):
-    x = rms_norm(x, _top(model, "ln_f", mesh), cfg.norm_eps)
-    w = _top(model, "embed", mesh).t() if cfg.tie_embeddings \
-        else _top(model, "lm_head", mesh)
-    return shard((x @ w).float(), ("batch", "seq", "vocab"))
+def _lm_head(model: Model, cfg: ArchConfig, x):
+    """float32 logits: the rank's vocabulary columns where the rules
+    split the vocabulary over "model", else all of them."""
+    x = rms_norm(x, tp_weight(model["ln_f"]), cfg.norm_eps)
+    split = _vocab_split(cfg)
+    if split:
+        x = common.enter_tp(x)
+    if cfg.tie_embeddings:
+        w = tp_weight(model["embed"], 0 if split else None).t()
+    else:
+        w = tp_weight(model["lm_head"], 1 if split else None)
+    return shard((x @ w).float(), ("batch", "seq", "vocab"),
+                 vocab=cfg.vocab_size)
+
+
+def _vocab_nll(logits, labels, cfg: ArchConfig):
+    """logsumexp - gold logit per token. On vocabulary-split logits each
+    rank holds its columns: the max over the vocabulary is all-reduced
+    (no gradient), the sum of exponentials and the gold logit (from the
+    rank that holds it, zeros elsewhere) summed over "model"."""
+    if not _vocab_split(cfg):
+        logz = torch.logsumexp(logits, dim=-1)
+        return logz - torch.gather(logits, -1, labels[..., None])[..., 0]
+    _, mesh, _ = common.installed_rules()
+    top = sm.all_reduce(logits.detach().amax(dim=-1), mesh, "model",
+                        op=torch.distributed.ReduceOp.MAX)
+    sumexp = common.leave_tp(torch.exp(logits - top[..., None]).sum(-1))
+    idx, inside = _vocab_range(logits.shape[-1], labels)
+    gold = torch.gather(logits, -1, idx[..., None])[..., 0]
+    gold = common.leave_tp(torch.where(inside, gold, 0.0))
+    return top + torch.log(sumexp) - gold
+
+
+def _whole_vocab(logits, cfg: ArchConfig):
+    """Logits over the whole vocabulary (gathered over "model" where the
+    rank holds its columns), for sampling."""
+    if not _vocab_split(cfg):
+        return logits
+    _, mesh, _ = common.installed_rules()
+    return sm.gather(logits, -1, mesh, "model")
 
 
 def _train_unit(layers, cfg: ArchConfig, impl: str, x, aux, positions,
@@ -436,7 +486,7 @@ def forward_train(model: Model, cfg: ArchConfig, batch: dict, *,
     every rank gets the global loss). The loss is the masked mean of
     logsumexp - gold logit, plus ``router_aux_weight`` times the layers'
     summed MoE load-balance losses, as in the reference."""
-    x, positions = _embed_inputs(model, cfg, batch, mesh)
+    x, positions = _embed_inputs(model, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     i = 0
     for unit, repeats in compute_segments(cfg):
@@ -449,11 +499,8 @@ def forward_train(model: Model, cfg: ArchConfig, batch: dict, *,
             else:
                 x, aux = _train_unit(layers, cfg, impl, x, aux, positions,
                                      mesh)
-    logits = _lm_head(model, cfg, x, mesh)
-    labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = logz - gold
+    logits = _lm_head(model, cfg, x)
+    nll = _vocab_nll(logits, batch["labels"].long(), cfg)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(nll)
@@ -466,7 +513,7 @@ def forward_train(model: Model, cfg: ArchConfig, batch: dict, *,
 def forward_prefill(model: Model, cfg: ArchConfig, batch: dict,
                     cache_len: int, *, impl: str = "reference", mesh=None):
     """Returns (last_token_logits (B, V) float32, caches)."""
-    x, positions = _embed_inputs(model, cfg, batch, mesh)
+    x, positions = _embed_inputs(model, cfg, batch)
     caches = []
     for layer in model.layers:
         x, _, c = _apply_layer(layer, x, cfg, positions, impl=impl,
@@ -474,7 +521,7 @@ def forward_prefill(model: Model, cfg: ArchConfig, batch: dict,
                                mesh=mesh)
         x = shard(x, ("batch", "seq", "embed"))
         caches.append(c)
-    logits = _lm_head(model, cfg, x[:, -1:], mesh)
+    logits = _whole_vocab(_lm_head(model, cfg, x[:, -1:]), cfg)
     return logits[:, 0], caches
 
 
@@ -482,7 +529,7 @@ def forward_decode(model: Model, cfg: ArchConfig, tokens, caches,
                    position: int, *, mesh=None):
     """One decode step. tokens: (B, 1) int; position: int. Returns
     (logits (B, V), new_caches). Attention caches are updated in place."""
-    x = _top(model, "embed", mesh)[tokens].to(cfg.activation_dtype)
+    x = _embed_tokens(model, cfg, tokens).to(cfg.activation_dtype)
     x = shard(x, ("batch", "seq", "embed"))
     new_caches = []
     for layer, c in zip(model.layers, caches):
@@ -490,5 +537,5 @@ def forward_decode(model: Model, cfg: ArchConfig, tokens, caches,
                                mode="decode", cache=c, position=position,
                                mesh=mesh)
         new_caches.append(c)
-    logits = _lm_head(model, cfg, x, mesh)
+    logits = _whole_vocab(_lm_head(model, cfg, x), cfg)
     return logits[:, 0], new_caches

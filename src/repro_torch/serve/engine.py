@@ -17,7 +17,13 @@ On a mesh every rank runs the engine on the same requests: the steps keep
 the rank's prompts over the axes they split the batch on (``(pod,
 data)``, or ``data``, or none where the batch does not divide them), and
 each step's new tokens are all-gathered over those axes, so every rank
-returns the same completions.
+returns the same completions. The steps run the tensor parallelism of
+``act_rules`` (the reference's ``ACT_RULES`` by default): the prefill
+builds each rank's caches in the layout ``steps.cache_shardings`` gives
+(its KV heads, or its block of slots, its RWKV heads, its RG-LRU
+channels), so a rank allocates only its shards, and both steps return
+logits gathered over the vocabulary, which are sampled as without a
+mesh.
 """
 from __future__ import annotations
 
@@ -57,11 +63,12 @@ class ServingEngine:
     Weights are drawn on ``device`` from a ``torch.Generator`` seeded with
     ``seed`` and cast to the config's activation dtype. With ``mesh`` (this
     process one of its ranks) the rank's device takes the place of
-    ``device``, and each rank keeps its shards of the same weights."""
+    ``device``, and each rank keeps its shards of the same weights;
+    ``act_rules`` places the activations (see the module's docstring)."""
 
     def __init__(self, cfg: ArchConfig, batch_size: int, max_prompt: int,
                  max_len: int, seed: int = 0, *, impl: str = "flash",
-                 device="cuda", mesh=None):
+                 device="cuda", mesh=None, act_rules: Optional[dict] = None):
         self.cfg = cfg
         self.mesh = mesh
         self.device = sm.mesh_device(mesh) if mesh is not None \
@@ -73,9 +80,10 @@ class ServingEngine:
         self.model = tfm.init_model(cfg, gen, dtype=cfg.activation_dtype,
                                     mesh=mesh)
         self.prefill = step_factory.make_prefill_step(
-            cfg, cache_len=max_len, impl=impl, mesh=mesh)
-        self.decode = step_factory.make_decode_step(cfg, batch_size,
-                                                    mesh=mesh)
+            cfg, cache_len=max_len, impl=impl, mesh=mesh,
+            act_rules=act_rules)
+        self.decode = step_factory.make_decode_step(
+            cfg, batch_size, mesh=mesh, act_rules=act_rules)
         # The axes the steps split the batch over, as the decode step
         # chose them (``()`` without a mesh).
         self.batch_axes = self.decode.batch_axes

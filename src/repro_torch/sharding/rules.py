@@ -50,6 +50,24 @@ ACT_RULES: dict[Optional[str], Axis] = {
 }
 
 
+# The other activation rule sets the reference's steps run (its
+# ``launch/hillclimb.py``): pure data parallelism over both mesh axes, no
+# TP; and the batch on (pod, data) with only the vocabulary on model.
+FSDP_ACT_RULES: dict[Optional[str], Axis] = {
+    "batch": ("data", "model"), "seq": None, "embed": None, "ff": None,
+    "heads": None, "kv_heads": None, "vocab": None, None: None,
+}
+ZERO16_ACT_RULES: dict[Optional[str], Axis] = {
+    "batch": ("pod", "data"), "seq": None, "embed": None, "ff": None,
+    "heads": None, "kv_heads": None, "vocab": "model", None: None,
+}
+# ACT_RULES without tensor parallelism: every model rank computes the
+# dense layers of its batch shard whole.
+NO_TP_ACT_RULES: dict[Optional[str], Axis] = {
+    **ACT_RULES, "heads": None, "kv_heads": None, "ff": None, "vocab": None,
+}
+
+
 def axis_names(mesh) -> tuple:
     names = getattr(mesh, "mesh_dim_names", None)
     return tuple(names) if names is not None else tuple(mesh.axis_names)

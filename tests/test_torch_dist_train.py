@@ -18,6 +18,15 @@ term.
 Planted faults must fail: the MoE output's all-gather with a summing
 backward (the gradient times tp), and a loss that averages per-shard
 means where the shards' masks differ (ragged masks).
+
+The mesh steps run the reference's ``ACT_RULES`` (tensor parallelism on
+``"model"``, the steps' default), but for the ragged-mask runs: those
+check how the loss meets over the batch split and run the layout with no
+tensor parallelism (``NO_TP``), where every model rank computes a layer
+whole. Under tensor parallelism the few embedding entries whose step-1
+gradients lie near Adam's epsilon move by a different share of the
+learning rate for float32 rounding alone; ``tests/test_torch_dist_tp.py``
+holds the tensor-parallel steps with full masks.
 """
 import dataclasses
 import hashlib
@@ -31,6 +40,7 @@ from repro_torch.launch import steps
 from repro_torch.models import convert
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding import rules as shrules
 from repro_torch.train import optimizer as opt_mod
 
 ARCH_NAMES = ["deepseek-moe-16b", "recurrentgemma-2b"]
@@ -39,6 +49,8 @@ B, S, STEPS = 8, 16, 2
 RTOL = 1e-5
 LEAF_TOL = 1e-4
 OPT = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=1, moment_dtype="float32")
+# The activation layout with no tensor parallelism on "model".
+NO_TP = shrules.NO_TP_ACT_RULES
 
 
 # Batches the (pod, data) axes do not divide (ROADMAP C.2): batch 1 on
@@ -78,10 +90,10 @@ def _model(cfg, mesh=None):
     return tfm.init_model(cfg, gen, dtype=cfg.activation_dtype, mesh=mesh)
 
 
-def _train(cfg, mesh, ragged=False, steps_n=STEPS, b=B):
+def _train(cfg, mesh, ragged=False, steps_n=STEPS, b=B, act_rules=None):
     model = _model(cfg, mesh)
     opt = opt_mod.init_opt_state(model, OPT)
-    step = steps.make_train_step(cfg, OPT, mesh=mesh)
+    step = steps.make_train_step(cfg, OPT, mesh=mesh, act_rules=act_rules)
     metrics = []
     for i in range(steps_n):
         opt, m = step(model, opt, batch_of(cfg, i, ragged, b))
@@ -146,11 +158,13 @@ def rank_main() -> dict:
         out["fault_tp"] = _train(cfg, mesh, steps_n=1)
     finally:
         sm.gather = saved
-    out["ragged"] = _train(cfg, mesh, ragged=True, steps_n=1)
+    out["ragged"] = _train(cfg, mesh, ragged=True, steps_n=1,
+                           act_rules=NO_TP)
     saved = tfm.masked_mean
     tfm.masked_mean = _per_shard_mean
     try:
-        out["fault_mean"] = _train(cfg, mesh, ragged=True, steps_n=1)
+        out["fault_mean"] = _train(cfg, mesh, ragged=True, steps_n=1,
+                                   act_rules=NO_TP)
     finally:
         tfm.masked_mean = saved
     if torch.distributed.get_rank() != 0:
