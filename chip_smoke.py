@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the query engine, LLM
-serving, training, distribution (4 ranks on the one card), the paper's
-benchmarks and the examples.
+serving, training, distribution (4 ranks on the one card), the
+compile-only dry run, the paper's benchmarks and the examples.
 
     python3 chip_smoke.py
 
@@ -198,6 +198,28 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    ``serverless_serving`` gave it (float32 at head dim 16: the CUDA-core
    route, ``csrc/flash_attention.cu``), and that route gets its own row
    of the kernels line.
+14. dryrun — (run right after the distributed phase) the compile-only
+   dry run (``repro_torch.launch.dryrun``: a step traced as rank 0 of a
+   fake world on fake tensors on the card, its counts extrapolated over
+   the layers' and microbatches' trip counts). (a) (d6)'s two prefills
+   (RecurrentGemma-2B and RWKV-6 1.6B, 4 x 4,096 tokens, under ACT_RULES
+   and NO_TP_ACT_RULES) and (d2)'s DeepSeekMoE train step under
+   FSDP_ACT_RULES, traced on (data 2, model 2) of a fake world of 4: rank
+   0's FLOPs must equal the ``FlopCounterMode`` FLOPs that (d6) and (d2)
+   measured on the card for the same step (the prefills on the
+   reference route, which (d6) also runs for this: the kernel route's
+   products are invisible to the counter), each collective kind's bytes
+   and ring wire bytes those of rank 0's ``COMM`` for that step, the
+   parameter bytes those the rank held; the predicted and measured peaks
+   are logged. (b) Each (d6) prefill's measured seconds (kernel route)
+   must be at least the larger of the compute and memory terms of its
+   dry-run cell. (c) The hillclimb's three baselines (deepseek-7b
+   train_4k, qwen3-moe-235b-a22b train_4k, recurrentgemma-2b
+   prefill_32k) on a fake 16x16 world and qwen3-moe-235b-a22b train_4k
+   on 2x16x16: one line each (trace seconds, FLOPs, bytes, wire bytes,
+   the three terms, the bottleneck, the kernelized memory term, the peak
+   a rank against the card's memory). No port kernel may launch in the
+   phase.
 
 Ends with the card's name and power limit, a ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``. Any mismatch or exception exits
@@ -225,7 +247,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 RTOL = 1e-6
 QUERIES = ("q1", "q6", "q12", "dup_key_join")
 PHASES = ("queries", "query_serving", "adaptive", "paper", "serve",
-          "train", "distributed", "examples")
+          "train", "distributed", "dryrun", "examples")
 # The phases that need the SF1 tables.
 QUERY_PHASES = ("queries", "query_serving", "adaptive", "paper")
 # The paper phase: Table 6's rows beside the paper's published values
@@ -348,6 +370,14 @@ DIST_SERVE_REQUESTS, DIST_SERVE_NEW = 4, 16
 TP_SERVE_ARCHS = ("recurrentgemma-2b", "rwkv6-1.6b")
 TP_FLOPS_MIN_RATIO = 1.8
 DIST_PARITY_MOE_LAYERS, DIST_PARITY_PROMPT = 2, 1024
+# The dryrun phase: (d2)'s run whose train step it predicts, and the
+# production cells (arch, shape, multi-pod) it traces: the hillclimb's
+# three baselines and the largest on the 512-rank world.
+DRYRUN_TRAIN_RUN = "deepseek-moe-16b@fsdp"
+DRYRUN_CELLS = (("deepseek-7b", "train_4k", False),
+                ("qwen3-moe-235b-a22b", "train_4k", False),
+                ("recurrentgemma-2b", "prefill_32k", False),
+                ("qwen3-moe-235b-a22b", "train_4k", True))
 # (d4): leaves above this many elements (the unit's 256000 x 2560
 # embedding: its float32 partial and temporaries take about 20 GB a
 # rank) are left out.
@@ -3173,6 +3203,29 @@ def train_on(cfg, mesh, device, leaves, moe_layer=None, act_rules=None):
     return metrics, step.seconds, records, model, opt
 
 
+def measure_train_step(cfg, mesh, model, opt, device, act_rules) -> dict:
+    """One more step of (d2)'s train step, outside the update recorder
+    (whose gathers are no part of the step): this rank's matmul FLOPs
+    (``FlopCounterMode``), the step's own ``COMM`` and its peak memory,
+    which the dryrun phase predicts."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.core import shard_map as sm
+    from repro_torch.launch import steps
+    step = steps.make_train_step(cfg, _train_opt(), mesh=mesh,
+                                 act_rules=act_rules)
+    batch = _train_batch(cfg, DIST_TRAIN_STEPS, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sm.reset_comm()
+    with FlopCounterMode(display=False) as counter:
+        step(model, opt, batch)
+    torch.cuda.synchronize()
+    return {"flops": counter.get_total_flops(),
+            "comm": {k: dict(v) for k, v in sm.COMM.items()},
+            "peak": torch.cuda.max_memory_allocated()}
+
+
 def _ckpt_objects(store) -> dict:
     return {k: bytes(store.get(k)) for k in store.list("")}
 
@@ -3200,10 +3253,12 @@ def dist_train(mesh, rank: int) -> dict:
         leaves = _train_leaves(cfg)
         sm.reset_comm()
         torch.cuda.reset_peak_memory_stats()
+        act = shrules.FSDP_ACT_RULES if rules == "fsdp" else None
         metrics, seconds, records, model, opt = train_on(
-            cfg, mesh, dev, leaves,
-            act_rules=shrules.FSDP_ACT_RULES if rules == "fsdp" else None)
+            cfg, mesh, dev, leaves, act_rules=act)
         comm = {k: dict(v) for k, v in sm.COMM.items()}
+        measured = measure_train_step(cfg, mesh, model, opt, dev, act) \
+            if key == DRYRUN_TRAIN_RUN else None
         local = sum(p.to_local().numel() * p.element_size()
                     for p in model.parameters())
         shapes, placements = steps.model_shardings(cfg, mesh)
@@ -3217,7 +3272,8 @@ def dist_train(mesh, rank: int) -> dict:
             rules += n * cfg.activation_dtype.itemsize
         rec = {"metrics": metrics, "seconds": seconds, "comm": comm,
                "local_param_bytes": local, "rules_param_bytes": rules,
-               "peak": torch.cuda.max_memory_allocated()}
+               "peak": torch.cuda.max_memory_allocated(),
+               "measured_step": measured}
         if key != DIST_CKPT_ARCH:
             del model, opt
             torch.cuda.empty_cache()
@@ -3431,7 +3487,7 @@ def dist_tp_serve(mesh, rank: int) -> dict:
         cache_got = [[tuple(t.shape) for t in c
                       if isinstance(t, torch.Tensor)] for c in caches]
         del caches
-        flops = {}
+        flops, measured = {}, {}
         for name, rules in (("act_rules", None),
                             ("no_tp", shrules.NO_TP_ACT_RULES)):
             step = steps.make_prefill_step(cfg, max_len, impl=impl,
@@ -3440,9 +3496,27 @@ def dist_tp_serve(mesh, rank: int) -> dict:
                 step(eng.model, {"tokens": toks})
             flops[name] = counter.get_total_flops()
             torch.cuda.empty_cache()
+            # The same prefill on the reference route (what the dry run
+            # traces: the kernels' products are invisible to the
+            # counter): FLOPs, its own COMM and peak, for the dryrun
+            # phase.
+            step = steps.make_prefill_step(cfg, max_len, impl="reference",
+                                           mesh=mesh, act_rules=rules)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sm.reset_comm()
+            with FlopCounterMode(display=False) as counter:
+                step(eng.model, {"tokens": toks})
+            torch.cuda.synchronize()
+            measured[name] = {
+                "flops": counter.get_total_flops(),
+                "comm": {k: dict(v) for k, v in sm.COMM.items()},
+                "peak": torch.cuda.max_memory_allocated()}
+            torch.cuda.empty_cache()
         rec = {"init_s": init_s, "wall_s": wall, "launches": launches,
                "prefill_s": prefill.seconds, "decode_s": decode.seconds,
                "comm": comm, "peak": peak, "flops": flops,
+               "measured_reference": measured,
                "local_param_bytes": sum(p.to_local().numel()
                                         * p.element_size()
                                         for p in eng.model.parameters()),
@@ -4243,10 +4317,32 @@ def check_dist_compress(res, card) -> None:
                                  f"bytes for {x['elements']} elements")
 
 
-def run_distributed(card: str) -> dict:
+def dist_measured(res) -> dict:
+    """What the dryrun phase predicts, from the ranks' results: each
+    (d6) model's reference-route prefill counts under both rule sets,
+    its measured prefill seconds (the kernel route) and parameter bytes,
+    and (d2)'s measured train step, all rank 0's."""
+    r0 = res[0]
+    tp = {}
+    for arch in TP_SERVE_ARCHS:
+        rec = r0["tp_serve"][arch]
+        tp[arch] = {
+            "act_rules": {**rec["measured_reference"]["act_rules"],
+                          "prefill_s": rec["prefill_s"]},
+            "no_tp": {**rec["measured_reference"]["no_tp"],
+                      "prefill_s": rec["no_tp"]["prefill_s"]},
+            "local_param_bytes": rec["local_param_bytes"]}
+    train = r0["train"][DRYRUN_TRAIN_RUN]
+    return {"tp_serve": tp, "train": {
+        **train["measured_step"],
+        "local_param_bytes": train["local_param_bytes"],
+        "rules_param_bytes": train["rules_param_bytes"]}}
+
+
+def run_distributed(card: str) -> tuple:
     """The distributed phase: 4 ranks on the card through gloo ((d1)-(d4)),
     then one NCCL rank ((d5)); returns the grouped matmul's launches on
-    its paths."""
+    its paths and ``dist_measured``'s counts."""
     import torch
     from repro_torch.launch import mesh as mesh_mod
     torch.cuda.empty_cache()
@@ -4278,6 +4374,7 @@ def run_distributed(card: str) -> dict:
         launches[k] = launches.get(k, 0) + n
     log("distributed_parent", card=card, train_check_s=t1 - t0,
         serve_check_s=t2 - t1, tp_serve_check_s=time.perf_counter() - t2)
+    measured = dist_measured(res)
     del res
     t0 = time.perf_counter()
     (nccl,) = mesh_mod.spawn(nccl_rank_main, 1, backend="nccl",
@@ -4291,7 +4388,143 @@ def run_distributed(card: str) -> dict:
         raise AssertionError(f"distributed nccl: {nccl}")
     launches["gmm"] += nccl["launches"]["gmm"]
     launches["gmm_tc"] += nccl["launches"]["gmm_tc"]
-    return launches
+    return launches, measured
+
+
+def _sent(comm: dict) -> dict:
+    """A COMM record's bytes by kind, the mailboxes' transport left out."""
+    return {k: v["bytes"] for k, v in comm.items() if k != "mailbox"}
+
+
+def check_prediction(what: str, summary, measured: dict, param_bytes: int,
+                     card: str, **fields) -> list[str]:
+    """(a): the dry run's rank-0 counts against the card's: FLOPs and
+    each collective kind's bytes (``COMM``'s convention) and wire bytes
+    equal, parameter bytes those the rank held; the peaks logged."""
+    comm = measured["comm"]
+    got_wire = summary.collective_wire
+    want_wire = {k: v["wire"] for k, v in comm.items() if k != "mailbox"}
+    wire_ok = set(got_wire) == set(want_wire) and all(
+        abs(got_wire[k] - want_wire[k]) <= 1e-9 * max(want_wire[k], 1.0)
+        for k in want_wire)
+    log("dryrun_prediction", card=card, cell=what, **fields,
+        flops_predicted=summary.dot_flops, flops_measured=measured["flops"],
+        comm_bytes_predicted=summary.collective_sent,
+        comm_bytes_measured=_sent(comm), wire_bytes_predicted=got_wire,
+        wire_bytes_measured=want_wire,
+        param_bytes_predicted=summary.tracked_bytes.get("params"),
+        param_bytes_measured=param_bytes,
+        peak_bytes_predicted=summary.peak_bytes,
+        peak_bytes_measured=measured["peak"])
+    failed = []
+    if summary.dot_flops != measured["flops"]:
+        failed.append(f"{what}: FLOPs {summary.dot_flops} predicted, "
+                      f"{measured['flops']} measured")
+    if summary.collective_sent != _sent(comm) or not wire_ok:
+        failed.append(f"{what}: collective bytes {summary.collective_sent}"
+                      f" (wire {got_wire}) predicted, {_sent(comm)} (wire "
+                      f"{want_wire}) measured")
+    if summary.tracked_bytes.get("params") != param_bytes:
+        failed.append(f"{what}: parameter bytes "
+                      f"{summary.tracked_bytes.get('params')} predicted, "
+                      f"{param_bytes} held")
+    return failed
+
+
+def run_dryrun(card: str, measured) -> None:
+    """The dryrun phase: (a) the dry run's traces of (d6)'s prefills and
+    (d2)'s FSDP train step on a fake world of 4 against the card's
+    counts, (b) each (d6) prefill no faster than its dry-run roofline,
+    (c) the production cells on fake 256- and 512-rank worlds; no port
+    kernel may launch."""
+    import dataclasses
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.sharding import rules as shrules
+    t_phase = time.perf_counter()
+    reset_launch_counts()                         # the path: counts at 0
+    failed = []
+    if measured is None:
+        log("dryrun_prediction", card=card, skipped="the distributed "
+            "phase did not run: nothing measured to predict")
+    else:
+        with mesh_mod.fake_world(DIST_WORLD):
+            mesh = mesh_mod.make_local_mesh(*DIST_MESH, device_type=DEVICE)
+            shape = ShapeConfig("d6_prefill", SERVE_PROMPT,
+                                DIST_SERVE_REQUESTS, "prefill")
+            for arch in TP_SERVE_ARCHS:
+                cfg = ARCHS[arch]
+                m = measured["tp_serve"][arch]
+                for name, rules in (("act_rules", None), (
+                        "no_tp", shrules.NO_TP_ACT_RULES)):
+                    summary, info = dryrun.trace_cell(
+                        cfg, shape, mesh, act_rules=rules,
+                        device_type=DEVICE,
+                        cache_len=SERVE_PROMPT + DIST_SERVE_NEW)
+                    failed += check_prediction(
+                        f"(d6) {arch} prefill {name}", summary, m[name],
+                        m["local_param_bytes"], card,
+                        trace_s=info["trace_s"], traced=info["traced"])
+                    terms = roofline.roofline_terms_from_trace(
+                        summary, DIST_WORLD, roofline.model_flops(cfg,
+                                                                  shape))
+                    bound = max(terms.compute_s, terms.memory_s)
+                    wall = m[name]["prefill_s"][0]
+                    log("dryrun_roofline", card=card, arch=arch,
+                        act_rules=name, prefill_s=wall,
+                        compute_s=terms.compute_s,
+                        memory_s=terms.memory_s,
+                        collective_s=terms.collective_s,
+                        prefill_over_bound=wall / bound)
+                    if not wall >= bound:
+                        failed.append(f"(d6) {arch} {name}: prefill {wall}"
+                                      f" s beats its roofline {bound} s")
+            train = measured["train"]
+            arch = DRYRUN_TRAIN_RUN.partition("@")[0]
+            cfg = _train_cfg(arch)
+            summary, info = dryrun.trace_cell(
+                cfg, ShapeConfig("d2_train", DIST_TRAIN[arch][1],
+                                 DIST_TRAIN_BATCH, "train"), mesh,
+                act_rules=shrules.FSDP_ACT_RULES, device_type=DEVICE,
+                opt_cfg=_train_opt())
+            failed += check_prediction(
+                f"(d2) {arch} train FSDP_ACT_RULES", summary, train,
+                train["local_param_bytes"], card, trace_s=info["trace_s"],
+                rules_param_bytes=train["rules_param_bytes"])
+    t_cells = time.perf_counter()
+    out = ROOT / "artifacts" / "torch" / "dryrun_smoke"
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
+                              device_type=DEVICE, out_dir=out)
+        r, k, mem = rec["roofline"], rec["roofline_kernelized"], \
+            rec["memory"]
+        log("dryrun_cell", card=card, cell=rec["cell"],
+            trace_s=rec["trace_s"], traced=rec["traced"],
+            trip_counts=rec["collectives"]["while_trip_counts"],
+            flops_per_device=r["flops_per_device"],
+            bytes_per_device=r["bytes_per_device"],
+            wire_bytes_per_device=r["wire_bytes_per_device"],
+            compute_s=r["compute_s"], memory_s=r["memory_s"],
+            collective_s=r["collective_s"], bottleneck=r["bottleneck"],
+            kernelized_memory_s=k["memory_s"],
+            kernelized_bottleneck=k["bottleneck"],
+            peak_bytes_per_device=mem["bytes_per_device"],
+            total_memory=mem["total_memory"],
+            peak_over_total=mem["bytes_per_device"] / mem["total_memory"],
+            wire_bytes_by_axis=rec["collectives"]["wire_bytes_by_axis"],
+            splits=rec["splits"], useful=r["useful_flops_ratio"])
+        if not (rec["flop_counter"]["flops"] > 0
+                and mem["bytes_per_device"] > 0):
+            failed.append(f"{rec['cell']}: nothing traced")
+    launches = {k: n for k, n in launch_counts().items() if n}
+    log("dryrun", card=card, seconds=time.perf_counter() - t_phase,
+        cells_s=time.perf_counter() - t_cells, launches=launches)
+    if launches:
+        failed.append(f"port kernels launched in the dry run: {launches}")
+    if failed:
+        raise AssertionError("dryrun: " + "; ".join(failed))
 
 
 MODEL_CHECKS = {
@@ -4427,8 +4660,9 @@ def main() -> int:
         run_train(smi)
         run_resume(smi)
         log("elapsed", after="train", seconds=time.perf_counter() - started)
+    measured = None
     if "distributed" in PHASES:
-        dist = run_distributed(smi)
+        dist, measured = run_distributed(smi)
         # The flash row of the CUDA-core route is the examples' own.
         for row in kernels:
             if row["name"] in dist and row["source"].endswith(
@@ -4436,6 +4670,9 @@ def main() -> int:
                 row["launches"] += dist[row["name"]]
         log("elapsed", after="distributed",
             seconds=time.perf_counter() - started)
+    if "dryrun" in PHASES:
+        run_dryrun(smi, measured)
+        log("elapsed", after="dryrun", seconds=time.perf_counter() - started)
     if "examples" in PHASES:
         example_launches, example_rows = run_examples()
         for row in kernels:

@@ -7,11 +7,12 @@ value held to its ``EXPECT`` band (the reference's bands).
 
 The counterpart of ``benchmarks/run.py``. Its modules are
 ``paper_figures``, ``paper_queries`` (Table 6 on the ``torch`` backend on
-the card) and ``engine_bench`` (every section on the card, nothing
-written). Exits 1 when a benchmark raised or a value fell outside its
-band, after printing every row. ``benchmarks/tpu_roofline.py`` has no
-counterpart yet: it reads the compile-only dry run's artifacts
-(``artifacts/dryrun/``), whose port waits for ROADMAP A.3.
+the card), ``engine_bench`` (every section on the card, nothing
+written) and ``h100_roofline`` (the dry run's artifacts,
+``artifacts/torch/dryrun/``, on the H100's roofline; no rows before
+``python -m repro_torch.launch.dryrun`` has run). Exits 1 when a
+benchmark raised or a value fell outside its band, after printing every
+row.
 """
 from __future__ import annotations
 
@@ -43,9 +44,9 @@ def run(modules) -> list[tuple[str, str]]:
 
 def main(modules=None) -> None:
     if modules is None:
-        from repro_torch.bench import engine_bench, paper_figures, \
-            paper_queries
-        modules = [paper_figures, paper_queries, engine_bench]
+        from repro_torch.bench import engine_bench, h100_roofline, \
+            paper_figures, paper_queries
+        modules = [paper_figures, paper_queries, engine_bench, h100_roofline]
     failures = run(modules)
     if failures:
         print("\nBOUND FAILURES:", file=sys.stderr)

@@ -35,9 +35,12 @@ functions whose backward is the matching collective:
 A rank's backward holds the gradient of one global loss, which every
 rank computes whole: what a rank computes for the whole group
 (replicated) gets the whole gradient, what it computes for itself alone
-gets its own part. ``COMM`` counts the bytes each kind of collective
-sent from this rank (and, under ``timing(True)``, the seconds it took,
-the device synchronised on both sides).
+gets its own part. ``COMM`` counts, for each kind of collective, the
+calls, the bytes it sent from this rank (``bytes``), its ring-algorithm
+wire bytes (``wire``: ``ring_wire_bytes`` of each call's result and
+group size, the reference dry run's formulas) and, under
+``timing(True)``, the seconds it took, the device synchronised on both
+sides.
 
 Several ranks on one card. NCCL refuses them, and gloo moves a CUDA
 tensor's bytes through host memory and TCP at about 0.3 GB/s a rank (an
@@ -190,10 +193,42 @@ def timing(on: bool = True):
         _TIMING[0] = prev
 
 
-def _record(kind: str, nbytes: int, t0: float | None) -> None:
-    entry = COMM.setdefault(kind, {"calls": 0, "bytes": 0, "s": 0.0})
+def sent_bytes(kind: str, nbytes: int, group: int) -> int:
+    """The bytes ``COMM`` counts for one collective (``bytes``): what
+    this rank sends in a ring, the payload for an all-reduce. ``nbytes``
+    is the result's bytes, ``group`` the ranks of its group."""
+    if kind == "all_gather":
+        return nbytes // group * (group - 1)
+    if kind == "reduce_scatter":
+        return nbytes * (group - 1)
+    if kind == "all_to_all":
+        return nbytes * (group - 1) // group
+    return nbytes
+
+
+def ring_wire_bytes(kind: str, nbytes: float, group: int) -> float:
+    """A collective's wire bytes a rank by the ring formulas of the
+    reference's HLO analysis (``repro.launch.hlo_analysis``): ``nbytes``
+    is the result's bytes (the payload of an all-reduce), ``group`` the
+    ranks of its group."""
+    if group <= 1:
+        return 0.0
+    if kind == "all_reduce":
+        return 2.0 * nbytes * (group - 1) / group
+    if kind in ("all_gather", "all_to_all"):
+        return nbytes * (group - 1) / group
+    if kind == "reduce_scatter":
+        return float(nbytes * (group - 1))
+    raise ValueError(f"no ring formula for {kind!r}")
+
+
+def _record(kind: str, nbytes: int, t0: float | None,
+            wire: float = 0.0) -> None:
+    entry = COMM.setdefault(kind, {"calls": 0, "bytes": 0, "wire": 0.0,
+                                   "s": 0.0})
     entry["calls"] += 1
     entry["bytes"] += int(nbytes)
+    entry["wire"] += wire
     if t0 is not None:
         entry["s"] += time.perf_counter() - t0
 
@@ -210,10 +245,13 @@ def _start(x):
     return time.perf_counter()
 
 
-def _done(x, kind, nbytes, t0):
+def _done(x, kind, t0, nbytes, group):
+    """Record one collective with a result of ``nbytes`` over ``group``
+    ranks."""
     if t0 is not None:
         _sync(x)
-    _record(kind, nbytes, t0)
+    _record(kind, sent_bytes(kind, nbytes, group), t0,
+            ring_wire_bytes(kind, nbytes, group))
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +327,7 @@ def _all_gather(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
         _mail_gather(mail, out, src, axis_group(mesh, axis))
     else:
         dist.all_gather_into_tensor(out, src, group=axis_group(mesh, axis))
-    _done(src, "all_gather", src.numel() * src.element_size() * (n - 1), t0)
+    _done(src, "all_gather", t0, out.numel() * out.element_size(), n)
     # Contiguous, as the kernels that take gathered weights need.
     return out.movedim(0, dim).contiguous()
 
@@ -312,8 +350,7 @@ def _reduce_scatter(x: torch.Tensor, dim: int, mesh, axis: str
         _mail_blocks(mail, src, axis_group(mesh, axis), each)
     else:
         dist.reduce_scatter_tensor(out, src, group=axis_group(mesh, axis))
-    _done(src, "reduce_scatter",
-          out.numel() * out.element_size() * (n - 1), t0)
+    _done(src, "reduce_scatter", t0, out.numel() * out.element_size(), n)
     return out.movedim(0, dim)
 
 
@@ -338,7 +375,7 @@ def all_reduce(x: torch.Tensor, mesh, axis: str, op=None) -> torch.Tensor:
     else:
         dist.all_reduce(out, op=op or dist.ReduceOp.SUM,
                         group=axis_group(mesh, axis))
-    _done(out, "all_reduce", out.numel() * out.element_size(), t0)
+    _done(out, "all_reduce", t0, out.numel() * out.element_size(), n)
     return out
 
 
@@ -392,8 +429,7 @@ def _exchange(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         _mail_blocks(mail, src, axis_group(mesh, axis), each)
     else:
         dist.all_to_all_single(out, src, group=axis_group(mesh, axis))
-    _done(src, "all_to_all",
-          src.numel() * src.element_size() * (n - 1) // n, t0)
+    _done(src, "all_to_all", t0, out.numel() * out.element_size(), n)
     return out
 
 

@@ -20,9 +20,15 @@ is the caller's choice and nothing else picks it:
     ``transport="cuda_ipc"``, the ranks' device mailboxes do
     (``core.shard_map.open_mailboxes``; gloo then carries barriers and
     small host objects only).
+
+``fake_world`` is the compile-only dry run's world: this process as
+rank 0 of ``world`` ranks on PyTorch's fake backend, whose collectives
+move nothing, so ``make_production_mesh`` builds the 16x16 and 2x16x16
+meshes in one process (``launch.dryrun``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import shutil
@@ -48,6 +54,23 @@ def make_production_mesh(*, multi_pod: bool = False,
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """This process as rank 0 of ``world`` ranks on the fake backend
+    (``torch.testing._internal.distributed.fake_pg``): every collective
+    returns at once and moves no bytes. The group is destroyed on exit,
+    so another world may follow in the same process."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_local_mesh(data: int = 1, model: int = 1, pod: int = 0, *,

@@ -12,9 +12,11 @@ The constants are the NVIDIA H100 SXM5 (80 GB) datasheet's ("NVIDIA H100
 Tensor Core GPU" datasheet): 989 TFLOPS of dense BF16 tensor-core
 throughput (1,979 with structured sparsity, not used here), 3.35 TB/s of
 HBM3 bandwidth and 900 GB/s of fourth-generation NVLink per GPU, the
-sum of both directions over its 18 links: 450 GB/s a direction. The
-per-device FLOP, byte and wire-byte counts come from the caller (the
-HLO parser of the reference has no counterpart yet).
+sum of both directions over its 18 links: 450 GB/s a direction; its
+memory is 80 GB. ``roofline_terms_from_trace`` takes the per-device
+FLOP, byte and wire-byte counts of a dry run's trace
+(``launch.trace_analysis``, the counterpart of the reference's HLO
+parse); ``roofline_terms`` takes them from any caller.
 
 ``count_params``, ``active_params`` and ``model_flops`` are copies of
 the reference's 6ND convention (MoE layers count their active experts)
@@ -29,6 +31,7 @@ import math
 H100_PEAK_BF16_FLOPS = 989e12       # dense BF16 tensor-core FLOP/s
 H100_HBM_BYTES_PER_S = 3.35e12      # HBM3
 H100_NVLINK_BYTES_PER_S = 450e9     # NVLink 4: 900 GB/s, both directions
+H100_MEMORY_BYTES = 80e9            # HBM3 capacity
 
 
 @dataclasses.dataclass
@@ -61,6 +64,15 @@ def roofline_terms(flops: float, bytes_: float, wire_bytes: float,
     return Roofline(float(flops), float(bytes_), float(wire_bytes),
                     compute_s, memory_s, collective_s, bottleneck,
                     float(model_flops), ratio)
+
+
+def roofline_terms_from_trace(summary, chips: int,
+                              model_flops: float) -> Roofline:
+    """Terms from a dry run's trace (``trace_analysis.TraceSummary``, or
+    anything with its ``dot_flops``, ``hbm_bytes`` and
+    ``collective_wire_bytes``); all inputs are per device."""
+    return roofline_terms(summary.dot_flops, summary.hbm_bytes,
+                          summary.collective_wire_bytes, chips, model_flops)
 
 
 # ---------------------------------------------------------------------------

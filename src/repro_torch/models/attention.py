@@ -324,10 +324,11 @@ def attention_prefill(params, x, cfg: ArchConfig, positions, *,
         keep = torch.ones_like(g, dtype=torch.bool)
     else:
         tok, keep = g, g < min(s, size)
-    kc = k.new_zeros((b, count) + tuple(k.shape[2:]))
-    vc = v.new_zeros((b, count) + tuple(v.shape[2:]))
-    kc[:, keep] = k[:, tok[keep]]
-    vc[:, keep] = v[:, tok[keep]]
+    # Slots past the prompt stay zero; a gather and a select (no boolean
+    # indexing, whose output size depends on the data).
+    tok = tok.clamp(max=s - 1)
+    kc = torch.where(keep[:, None, None], k[:, tok], 0)
+    vc = torch.where(keep[:, None, None], v[:, tok], 0)
     return y, KVCache(kc, vc, min(s, size), size if seq else 0)
 
 

@@ -325,9 +325,10 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
     d = x.shape[-1]
     assert sum(sections) == d // 2, (sections, d)
     freqs = rope_freqs(d, theta, x.device)
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.as_tensor(sections, device=x.device))
+    # The section of each rotary pair, from the host tuple (a repeat
+    # count held in a tensor would make the output size data-dependent).
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)
     angles = positions.float()[sec_id]                         # (D/2, B, S)
     angles = angles.movedim(0, -1) * freqs                     # (B, S, D/2)
     return _rotate(x, angles[..., None, :])

@@ -84,7 +84,12 @@ def _route(params, x2d, mo: MoEConfig, norm_topk: bool):
         gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch/GShard load-balance loss: E * sum_e f_e * p_e.
     e = mo.num_experts
-    density = torch.bincount(idx.reshape(-1), minlength=e).float()
+    # A scatter-add of ones, as the reference counts them: the same
+    # integers as ``bincount`` (below 2^24), without its data-dependent
+    # output size, which a trace on fake tensors cannot follow.
+    flat = idx.reshape(-1)
+    density = probs.new_zeros((e,)).index_add_(
+        0, flat, probs.new_ones(flat.shape))
     density = density / density.sum().clamp_min(1.0)
     aux = e * torch.sum(density * probs.mean(dim=0))
     return gates, idx, aux

@@ -45,6 +45,12 @@ gives every rank the shards ``init_model`` gives it.
 """
 import dataclasses
 import hashlib
+import os
+import subprocess
+import sys
+import textwrap
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -59,7 +65,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.sharding import rules as shrules
 from repro_torch.train import optimizer as opt_mod
+from reference_source import module_values
 
+REPO = Path(__file__).resolve().parents[1]
 ARCH_NAMES = ["internlm2-1.8b", "recurrentgemma-2b", "rwkv6-1.6b",
               "deepseek-moe-16b"]
 MESHES = {"data2-model2": (2, 2, 0), "pod2-data1-model2": (1, 2, 2)}
@@ -467,9 +475,36 @@ def test_merge_without_log_sum_exp_fails(results, oracle):
 
 
 def test_rule_sets_equal_the_reference():
-    from repro.launch import hillclimb
+    # Read from the source: importing repro.launch.hillclimb would set
+    # XLA_FLAGS to 512 host devices for every later test of the worker.
+    hillclimb = types.SimpleNamespace(**module_values(
+        "repro.launch.hillclimb", "FSDP_ACT_RULES", "ZERO16_ACT_RULES"))
     assert FSDP_ACT_RULES == hillclimb.FSDP_ACT_RULES
     assert ZERO16_ACT_RULES == hillclimb.ZERO16_ACT_RULES
+
+
+def test_rule_set_test_leaves_jax_one_device():
+    """The test above, run through pytest in a fresh process, leaves
+    ``XLA_FLAGS`` unset and JAX on one device for what runs after it."""
+    code = textwrap.dedent("""
+        import os, sys
+        import pytest
+        rc = pytest.main(["-q", "-p", "no:cacheprovider", "-p", "no:xdist",
+                          "-p", "no:randomly", sys.argv[1]])
+        import jax
+        print("RESULT", int(rc), os.environ.get("XLA_FLAGS"),
+              jax.device_count())
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(REPO / "src")
+    env["JAX_PLATFORMS"] = "cpu"
+    out = subprocess.run(
+        [sys.executable, "-c", code, f"{Path(__file__).name}::"
+         "test_rule_sets_equal_the_reference"], cwd=Path(__file__).parent,
+        capture_output=True, text=True, env=env, timeout=300)
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT")]
+    assert line, out.stdout[-2000:] + out.stderr[-2000:]
+    assert line[-1].split()[1:] == ["0", "None", "1"], line[-1]
 
 
 @pytest.mark.parametrize("heads,kv_heads", [(10, 1), (8, 2), (12, 3)])
