@@ -49,15 +49,22 @@ reference's ``_kernelized`` does.
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod|--both] \\
-      [--skip-existing] [--device cpu]
+      [--skip-existing] [--device cpu] [--jobs N]
+
+``--jobs N`` traces N cells at once, each in a process of its own; the
+command exits 1 if any cell failed.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
+import subprocess
+import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor, as_completed
 from pathlib import Path
 from typing import Optional
 
@@ -308,18 +315,6 @@ def trace_cell(cfg, shape: ShapeConfig, mesh, *, rules=None,
 # Cells
 # ---------------------------------------------------------------------------
 
-def _kernelized(terms, summary) -> dict:
-    """Roofline variant with the flash-attention kernel: the materialised
-    score tensors' HBM traffic stays on chip."""
-    mem = max(summary.hbm_bytes - summary.score_bytes, 0.0)
-    memory_s = mem / roofline.H100_HBM_BYTES_PER_S
-    t = {"compute": terms.compute_s, "memory": memory_s,
-         "collective": terms.collective_s}
-    return {"memory_s": memory_s, "compute_s": terms.compute_s,
-            "collective_s": terms.collective_s,
-            "bottleneck": max(t, key=t.get)}
-
-
 def _memory_dict(summary, device) -> dict:
     tracked = summary.tracked_bytes
     out = {"bytes_per_device": summary.peak_bytes,
@@ -360,7 +355,8 @@ def record(cfg, shape: ShapeConfig, mesh, summary, info, *, name: str,
                         "counts_by_axis": summary.collective_axis_counts,
                         "wire_bytes_by_axis": summary.collective_axis_wire},
         "roofline": terms.to_dict(),
-        "roofline_kernelized": _kernelized(terms, summary),
+        "roofline_kernelized": roofline.kernelized_terms(
+            terms.to_dict(), summary.score_bytes),
         "score_bytes_per_device": summary.score_bytes,
         "params_total": roofline.count_params(cfg),
         "params_active": roofline.active_params(cfg),
@@ -393,6 +389,52 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
     return rec
 
 
+def _line(rec: dict) -> str:
+    """A cell's line of the sweep's output."""
+    if rec["status"] == "n/a":
+        return f"[n/a ] {rec['cell']}: {rec['reason']}"
+    if rec["status"] != "ok":
+        return f"[FAIL] {rec['cell']}: {rec['error']}"
+    r = rec["roofline"]
+    return (f"[ ok ] {rec['cell']}: trace={rec['trace_s']}s "
+            f"mem/dev={rec['memory']['bytes_per_device']/2**30:.2f}GiB "
+            f"compute={r['compute_s']:.4f}s memory={r['memory_s']:.4f}s "
+            f"collective={r['collective_s']:.4f}s "
+            f"bottleneck={r['bottleneck']}")
+
+
+def _failed(name: str, error: str, tb: str) -> dict:
+    return {"cell": name, "status": "failed", "error": error,
+            "traceback": tb[-4000:]}
+
+
+def _in_process(arch, shape, mp, device) -> dict:
+    name = cell_name(arch, shape, mp)
+    try:
+        return run_cell(arch, shape, multi_pod=mp, device_type=device)
+    except Exception as e:  # noqa: BLE001 — record and continue the sweep
+        return _failed(name, repr(e), traceback.format_exc())
+
+
+def _in_subprocess(arch, shape, mp, device) -> dict:
+    """One cell in a process of its own (``main`` on that cell alone);
+    its record is the artifact it writes."""
+    name = cell_name(arch, shape, mp)
+    path = ARTIFACTS / (name + ".json")
+    path.unlink(missing_ok=True)
+    src = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--device", device] + \
+        (["--multi-pod"] if mp else [])
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env)
+    if path.exists():
+        return json.loads(path.read_text())
+    return _failed(name, f"the cell's process exited {out.returncode} "
+                   "without a record", out.stdout + out.stderr)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -405,6 +447,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="the device of the fake tensors (cuda: the card "
                          "must be there)")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells traced at once, each in a process of its "
+                         "own (a trace is host-bound, one core each)")
     args = ap.parse_args(argv)
 
     cells = []
@@ -416,41 +461,34 @@ def main(argv=None) -> None:
             for mp in pods:
                 cells.append((arch, shape, mp))
 
-    ok = failed = na = skipped = 0
+    skipped = 0
+    todo = []
     for arch, shape, mp in cells:
-        name = cell_name(arch, shape, mp)
-        path = ARTIFACTS / (name + ".json")
+        path = ARTIFACTS / (cell_name(arch, shape, mp) + ".json")
         if args.skip_existing and path.exists():
             prev = json.loads(path.read_text())
             if prev.get("status") in ("ok", "n/a"):
                 skipped += 1
                 continue
-        try:
-            rec = run_cell(arch, shape, multi_pod=mp,
-                           device_type=args.device)
-            if rec["status"] == "n/a":
-                na += 1
+        todo.append((arch, shape, mp))
+    one = _in_subprocess if args.jobs > 1 else _in_process
+    counts = {"ok": 0, "n/a": 0, "failed": 0}
+    with ThreadPoolExecutor(max(args.jobs, 1)) as pool:
+        futures = [pool.submit(
+            one if shape_applicable(get_arch(arch), SHAPES[shape])
+            else _in_process, arch, shape, mp, args.device)
+            for arch, shape, mp in todo]
+        for fut in as_completed(futures):
+            rec = fut.result()
+            counts[rec["status"]] += 1
+            if rec["status"] != "ok":
                 ARTIFACTS.mkdir(parents=True, exist_ok=True)
-                path.write_text(json.dumps(rec, indent=1))
-                print(f"[n/a ] {name}: {rec['reason']}", flush=True)
-            else:
-                ok += 1
-                r = rec["roofline"]
-                print(f"[ ok ] {name}: trace={rec['trace_s']}s "
-                      f"mem/dev={rec['memory']['bytes_per_device']/2**30:.2f}GiB "
-                      f"compute={r['compute_s']:.4f}s memory={r['memory_s']:.4f}s "
-                      f"collective={r['collective_s']:.4f}s "
-                      f"bottleneck={r['bottleneck']}", flush=True)
-        except Exception as e:  # noqa: BLE001 — record and continue the sweep
-            failed += 1
-            ARTIFACTS.mkdir(parents=True, exist_ok=True)
-            path.write_text(json.dumps(
-                {"cell": name, "status": "failed", "error": repr(e),
-                 "traceback": traceback.format_exc()[-4000:]}, indent=1))
-            print(f"[FAIL] {name}: {e!r}", flush=True)
-    print(f"dryrun summary: ok={ok} n/a={na} failed={failed} "
-          f"skipped={skipped}", flush=True)
-    if failed:
+                (ARTIFACTS / (rec["cell"] + ".json")).write_text(
+                    json.dumps(rec, indent=1))
+            print(_line(rec), flush=True)
+    print(f"dryrun summary: ok={counts['ok']} n/a={counts['n/a']} "
+          f"failed={counts['failed']} skipped={skipped}", flush=True)
+    if counts["failed"]:
         raise SystemExit(1)
 
 

@@ -21,7 +21,6 @@ OUT = ROOT / "artifacts" / "torch" / "EXPERIMENTS.md"
 
 GIB = 2 ** 30
 PEAK = roofline.H100_PEAK_BF16_FLOPS
-HBM = roofline.H100_HBM_BYTES_PER_S
 BUDGET = roofline.H100_MEMORY_BYTES
 
 
@@ -45,17 +44,8 @@ def dominant(r):
 
 
 def kernelized_terms(rec):
-    rk = rec.get("roofline_kernelized")
-    if rk:
-        return rk
-    r = rec["roofline"]
-    score = rec.get("score_bytes_per_device", 0.0)
-    mem = max(r["bytes_per_device"] - score, 0.0) / HBM
-    t = {"compute": r["compute_s"], "memory": mem,
-         "collective": r["collective_s"]}
-    return {"compute_s": r["compute_s"], "memory_s": mem,
-            "collective_s": r["collective_s"],
-            "bottleneck": max(t, key=t.get)}
+    return rec.get("roofline_kernelized") or roofline.kernelized_terms(
+        rec["roofline"], rec.get("score_bytes_per_device", 0.0))
 
 
 def mfu_bound(rec, kern=False):
@@ -99,7 +89,6 @@ def headline(hill: list, chips: int = 256) -> list[str]:
 def main(art: Path = ART, hill_path: Path = HILL, out: Path = OUT) -> None:
     single = load("16x16", art=art)
     multi = load("2x16x16", art=art)
-    blocked = load("16x16", "blocked", art=art)
     hill = json.loads(hill_path.read_text()) if hill_path.exists() else []
 
     L = []
@@ -123,9 +112,8 @@ def main(art: Path = ART, hill_path: Path = HILL, out: Path = OUT) -> None:
              "tensors. `long_500k` is n/a by rule for the full-attention "
              "archs. Memory: the tracked peak of live storages a rank "
              f"(budget {BUDGET / 1e9:.0f} GB).\n")
-    L.append("| arch | shape | 16x16 | mem/dev GiB | mem/dev GiB (blocked) |"
-             " 2x16x16 | mem/dev GiB |")
-    L.append("|---|---|---|---|---|---|---|")
+    L.append("| arch | shape | 16x16 | mem/dev GiB | 2x16x16 | mem/dev GiB |")
+    L.append("|---|---|---|---|---|---|")
     keys = sorted(set(single) | set(multi))
 
     def cell(r):
@@ -137,8 +125,7 @@ def main(art: Path = ART, hill_path: Path = HILL, out: Path = OUT) -> None:
     for k in keys:
         cs, ms_ = cell(single.get(k))
         cm, mm = cell(multi.get(k))
-        bm = cell(blocked[k])[1] if k in blocked else ""
-        L.append(f"| {k[0]} | {k[1]} | {cs} | {ms_} | {bm} | {cm} | {mm} |")
+        L.append(f"| {k[0]} | {k[1]} | {cs} | {ms_} | {cm} | {mm} |")
     over = [k for k in keys if single.get(k, {}).get("status") == "ok"
             and single[k]["memory"]["bytes_per_device"] > BUDGET]
     L.append("")

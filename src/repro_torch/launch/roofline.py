@@ -16,7 +16,8 @@ sum of both directions over its 18 links: 450 GB/s a direction; its
 memory is 80 GB. ``roofline_terms_from_trace`` takes the per-device
 FLOP, byte and wire-byte counts of a dry run's trace
 (``launch.trace_analysis``, the counterpart of the reference's HLO
-parse); ``roofline_terms`` takes them from any caller.
+parse); ``roofline_terms`` takes them from any caller;
+``kernelized_terms`` credits flash attention with the score bytes.
 
 ``count_params``, ``active_params`` and ``model_flops`` are copies of
 the reference's 6ND convention (MoE layers count their active experts)
@@ -73,6 +74,19 @@ def roofline_terms_from_trace(summary, chips: int,
     ``collective_wire_bytes``); all inputs are per device."""
     return roofline_terms(summary.dot_flops, summary.hbm_bytes,
                           summary.collective_wire_bytes, chips, model_flops)
+
+
+def kernelized_terms(terms: dict, score_bytes: float) -> dict:
+    """``terms`` (a ``Roofline.to_dict()``) with the flash-attention
+    kernel: the materialised score tensors' bytes stay on chip (the
+    reference's ``_kernelized``)."""
+    memory_s = max(terms["bytes_per_device"] - score_bytes, 0.0) \
+        / H100_HBM_BYTES_PER_S
+    t = {"compute": terms["compute_s"], "memory": memory_s,
+         "collective": terms["collective_s"]}
+    return {"compute_s": terms["compute_s"], "memory_s": memory_s,
+            "collective_s": terms["collective_s"],
+            "bottleneck": max(t, key=t.get)}
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,10 @@ every aten op and every c10d collective the rank issues. Its
   * dot_flops     — ``torch.utils.flop_counter.FlopCounterMode``'s count
                     of the step's matmuls and convolutions;
   * hbm_bytes     — input and output bytes of every aten op that is not a
-                    view (nor a metadata or allocation op): the
-                    counterpart of the reference's fusion-boundary rule,
-                    an upper bound of what fused kernels move;
+                    view (nor a metadata or allocation op), composite
+                    ops counted as the ops they run: the counterpart of
+                    the reference's fusion-boundary rule, an upper bound
+                    of what fused kernels move;
   * score_bytes   — the part of ``hbm_bytes`` of ops whose output has two
                     trailing dims >= 1024 (``is_score_shape``): the
                     materialised attention scores that a flash kernel
@@ -34,6 +35,12 @@ every aten op and every c10d collective the rank issues. Its
   * while_trip_counts — ``[]``: the step's loops are Python loops,
                     unrolled in the trace (``launch.dryrun`` fills in the
                     trip counts it extrapolates over).
+
+Composite ops (``to``, ``contiguous``, ``reshape``, ``einsum``,
+``matmul``) reach the mode whole where autograd is off (prefill and
+decode run under ``inference_mode``); the mode decomposes them, as
+autograd does in a train step, so a copy they make is counted and kept
+live like any op's output, not taken for a view.
 
 Memory: the tracker follows storages, not tensors. Those that exist
 before the step (parameters, optimizer state, inputs) are registered
@@ -68,7 +75,8 @@ COLLECTIVES = {
 ZERO_COST = {
     "prim.device", "aten.detach", "aten.empty", "aten.empty_strided",
     "aten.new_empty", "aten.new_empty_strided", "aten.empty_like",
-    "aten.lift_fresh", "aten.alias", "aten._local_scalar_dense",
+    "aten.lift_fresh", "aten.alias", "aten._unsafe_view",
+    "aten._local_scalar_dense",
     "aten.sym_size", "aten.sym_stride", "aten.sym_numel",
     "aten.sym_storage_offset", "aten.is_same_size", "aten.set_",
     "c10d.barrier", "c10d.wait",
@@ -190,8 +198,17 @@ class TraceMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
         name = str(func.overloadpacket)
+        if name not in COLLECTIVES and name != "prim.device":
+            # A composite op (``to``, ``contiguous``, ``reshape``,
+            # ``einsum``, ``matmul``: what reaches the mode whole where
+            # autograd is off, as in prefill and decode) counted as the
+            # ops it runs: its copies are no views, its temporaries live.
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = func(*args, **kwargs)
         if name in ZERO_COST or getattr(func, "is_view", False):
             return out
         self.ops += 1

@@ -162,24 +162,27 @@ def _single(params, x, cfg: ArchConfig, use_kernel: bool = False):
 
 
 def moe_layer(params, x, cfg: ArchConfig, *, mesh=None,
-              use_kernel: bool = False):
+              use_kernel: bool = False, aux: bool = True):
     """x: (B, S, D) -> (y, aux_loss). Under ``mesh`` (which must have a
     ``"model"`` axis) the EP path: ``x`` is the rank's batch shard, the
     parameters DTensors placed by the rules (or whole tensors every rank
     holds), and ``y`` the rank's batch shard; otherwise single-device
-    math."""
+    math. With ``aux`` false (prefill and decode, which drop the loss)
+    ``aux_loss`` is None and its all-reduce is not issued, as XLA drops
+    the reference's unused ``pmean``."""
     mo = cfg.moe
     b, s, d = x.shape
     if mesh is not None:
         if "model" not in sm.axis_names(mesh):
             raise ValueError("the expert-parallel MoE needs a 'model' axis; "
                              f"the mesh has {sm.axis_names(mesh)}")
-        y, aux = _moe_ep(params, x, cfg, mesh, mo.norm_topk, use_kernel)
+        y, loss = _moe_ep(params, x, cfg, mesh, mo.norm_topk, use_kernel,
+                          aux)
     else:
-        y, aux = _single(params, x, cfg, use_kernel)
+        y, loss = _single(params, x, cfg, use_kernel)
     if mo.num_shared_experts:
         y = y + mlp_mod.mlp(params["shared"], x)
-    return y, aux
+    return y, loss if aux else None
 
 
 def per_shard_layer(dp: int, tp: int):
@@ -190,7 +193,7 @@ def per_shard_layer(dp: int, tp: int):
     the shards' (the reference's ``pmean``). The oracle the sharded layer
     is held to; drops and all."""
     def layer(params, x, cfg: ArchConfig, *, mesh=None,
-              use_kernel: bool = False):
+              use_kernel: bool = False, aux: bool = True):
         routed = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, num_shared_experts=0))
         b, s, _ = x.shape
@@ -212,7 +215,7 @@ def per_shard_layer(dp: int, tp: int):
             up = torch.einsum("bsd,df->bsf", x, sp["w_up"])
             y = y + torch.einsum("bsf,fd->bsd", silu(gate) * up,
                                  sp["w_down"])
-        return y, torch.stack(auxes).mean()
+        return y, torch.stack(auxes).mean() if aux else None
     return layer
 
 
@@ -243,7 +246,7 @@ def _from_experts(yb, mesh, tp: int):
 
 
 def _moe_ep(params, x, cfg: ArchConfig, mesh, norm_topk: bool,
-            use_kernel: bool):
+            use_kernel: bool, want_aux: bool = True):
     """Expert parallelism over the 'model' axis (the reference's
     ``_moe_ep``, ``src/repro/models/moe.py:153``).
 
@@ -293,6 +296,8 @@ def _moe_ep(params, x, cfg: ArchConfig, mesh, norm_topk: bool,
                           use_kernel)
         if rows_on_model:
             y = sm.split(y, 0, mesh, "model")
+    if not want_aux:
+        return y, None
     # The mean of the distinct shards' terms: ranks that hold the same
     # rows add theirs once.
     same = tuple(a for a in sm.dp_axes(mesh) if a not in split)

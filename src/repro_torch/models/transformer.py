@@ -295,7 +295,8 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
         h2 = rms_norm(x, tp_weight(p["ln2"]), cfg.norm_eps)
         if kind == "moe":
             f, aux = moe_mod.moe_layer(p["ffn"], h2, cfg, mesh=mesh,
-                                       use_kernel=(impl == "flash_moe"))
+                                       use_kernel=(impl == "flash_moe"),
+                                       aux=(mode == "train"))
         else:
             f = mlp_mod.mlp(p["ffn"], h2)
         return x + f, aux, new_cache

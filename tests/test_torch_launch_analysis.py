@@ -108,3 +108,28 @@ def test_op_bytes_of_a_small_function_by_hand():
     assert got.peak_bytes == 128 + 512 + 256 + 256
     assert got.collective_counts == {}
     assert s.shape == ()
+
+
+@pytest.mark.parametrize("fake", [False, True], ids=["real", "fake"])
+def test_composite_copies_under_inference_mode_by_hand(fake):
+    """Under ``inference_mode`` ``to``, ``contiguous`` and ``reshape``
+    reach the mode whole; each copy they make is counted and stays live
+    while a view of it does (prefill caches keep the last row of every
+    layer's normalised input)."""
+    with FakeTensorMode() if fake else torch.no_grad():
+        x = torch.zeros((4, 256))                         # float32, 4 KiB
+        with ta.trace() as t, torch.inference_mode():
+            t.mode.track(x, "inputs")
+            h = (x * 2).to(torch.bfloat16)   # 4096 + 4096, then 4096 + 2048
+            same = h.to(torch.bfloat16)      # no copy
+            c = x.t().contiguous()           # 4096 read, 4096 written
+            r = x.t().reshape(-1)            # a copy: 4096 + 4096, and a
+            #                                  view of it (_unsafe_view)
+            last = h[-1]                     # a view keeps h's storage
+            del h, same
+    got = t.summary()
+    assert got.hbm_bytes == (4096 + 4096) + (4096 + 2048) + 2 * (4096 + 4096)
+    # The float32 product is freed after the cast; x, h, c and r remain.
+    assert got.peak_bytes == t.mode.live == 4096 + 2048 + 4096 + 4096
+    assert last.shape == (256,) and c.shape == (256, 4)
+    assert r.shape == (1024,)

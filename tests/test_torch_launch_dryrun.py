@@ -18,7 +18,9 @@ train cell traces with FLOPs and collectives over ``"pod"``; a reduced
 config goes through ``run_cell`` on a fake 16x16 world and writes a
 record with the reference's keys; ``long_500k`` on a full-attention
 arch is the reference's n/a record (the reference runs in a subprocess:
-importing ``repro.launch.dryrun`` sets ``XLA_FLAGS``).
+importing ``repro.launch.dryrun`` sets ``XLA_FLAGS``). The same kind of
+cells against the reference's own lowering:
+``tests/test_torch_launch_reference.py``.
 """
 import dataclasses
 import json
