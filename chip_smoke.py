@@ -42,11 +42,15 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
 7. kernels — each query kernel's wrapper against its plain PyTorch
    version on the card at the shapes the queries gave it, timed with CUDA
    events (median and spread of five batches) beside its bound, the plain
-   version and one PyTorch library call; the segmented reduction through
-   the host offsets the engine passes and through ids (derived on the
-   card), with no wait for the card inside the call, and its host µs
+   version and one PyTorch library call, and its host µs a call
    (``perf_counter``) beside its kernels' device µs (``torch.profiler``);
-   each row's launches are those of phases 3, 5 and 6;
+   the probes bit-equal at the recorded inputs, and at key counts either
+   side of their launch plan's change of block size on a stream other
+   than the default, where their raw stream getter must return that
+   stream; the segmented reduction through the host offsets the engine
+   passes and through ids (derived on the card), with no wait for the
+   card inside the call; each row's launches are those of phases 3, 5
+   and 6 and the paper phase;
 8. serve  — ``ServingEngine`` answers 8 requests of 1,024-4,096 prompt
    tokens and 32 new tokens each, in two batches of 4, with each of three
    models at full width and depth (random bf16 weights from a seeded
@@ -1218,55 +1222,137 @@ def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def check_probes(recorded, launches):
+def probe_calls(kind, build, keys, table):
+    """The probe wrapper of ``kind`` on these inputs, its plain version,
+    its library call (``torch.searchsorted``, twice for the range probe)
+    and the bytes a key's outputs take."""
     import torch
     from repro_torch.kernels import hash_join as hj
+    scalars = (table.bias, table.shift)
+    if kind == "probe":
+        return (lambda: hj.sorted_probe(build, keys, table=table),
+                lambda: hj.sorted_probe_plain(build, keys, scalars,
+                                              table.starts),
+                lambda: torch.searchsorted(build, keys), 4 + 1)
+    return (lambda: hj.sorted_probe_range(build, keys, table=table),
+            lambda: hj.sorted_probe_range_plain(build, keys, scalars,
+                                                table.starts),
+            lambda: (torch.searchsorted(build, keys),
+                     torch.searchsorted(build, keys, right=True)),
+            4 + 4 + 1)
+
+
+def probe_equal(kind, kern, plain, n, s) -> float:
+    """Runs ``kern`` once: it must launch the probe's kernel once and
+    equal ``plain`` bit for bit. Returns the largest absolute difference
+    over its outputs (0.0 when they are equal)."""
+    import torch
+    from repro_torch.kernels import hash_join as hj
+    counter = "PROBE_LAUNCHES" if kind == "probe" else "PROBE_RANGE_LAUNCHES"
+    before = getattr(hj, counter)
+    got = kern()
+    launched = getattr(hj, counter) - before
+    want = plain()
+    torch.cuda.current_stream().synchronize()
+    if launched != 1:
+        raise AssertionError(f"{kind} of {n} keys into {s}: {launched} "
+                             "launches, not 1")
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{kind} ({n} keys into {s}): kernel != "
+                                 f"plain version (max abs err {err})")
+    return float(err)
+
+
+def probe_inputs(kind, n, s, seed):
+    """Sorted int32 build keys (distinct for the probe, with duplicate
+    runs for the range probe) and ``n`` keys, half of them build keys,
+    some below and above every build key, from a numpy seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if kind == "probe":
+        build = np.sort(rng.choice(8 * s, s, replace=False))
+    else:
+        build = np.sort(rng.integers(0, 2 * s, s))
+    keys = np.concatenate([rng.choice(build, n // 2),
+                           rng.integers(-s, 9 * s, n - n // 2)])
+    return build.astype(np.int32), rng.permutation(keys).astype(np.int32)
+
+
+def check_probe_side_stream() -> None:
+    """Both probes on a stream other than the default, at key counts
+    either side of the launch plan's change from 32- to 256-thread blocks
+    (256 keys an SM), at one key, and into build sides of one key and of
+    the main path's sizes: each bit-equal to its plain version. The raw
+    stream getter the wrappers use must return that stream."""
+    import torch
+    from repro_torch.kernels import hash_join as hj
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        hj._fns()
+        raw = hj._STREAM(torch.cuda.current_device())
+        if raw != side.cuda_stream or raw == \
+                torch.cuda.default_stream().cuda_stream:
+            raise AssertionError(f"the probes' stream getter gave {raw}, "
+                                 f"not the current stream {side.cuda_stream}")
+        for kind in ("probe", "probe_range"):
+            for i, (n, s) in enumerate(((256 * sms - 1, 5_059),
+                                        (256 * sms, 5_059),
+                                        (256 * sms + 1, 187_500),
+                                        (1, 187_500), (5_265, 1))):
+                build, keys = probe_inputs(kind, n, s, seed=i)
+                table = hj.probe_table(build, "cuda")
+                kern, plain, _, _ = probe_calls(
+                    kind, table.build, torch.from_numpy(keys).cuda(), table)
+                err = probe_equal(kind, kern, plain, n, s)
+                log("probe_side_stream", name=kind, n=n, build=s,
+                    stream=raw, max_abs_err=err)
+    side.synchronize()
+
+
+def check_probes(recorded, launches):
+    """Each probe at the main path's recorded inputs: bit-equal to its
+    plain version, timed beside the library call, and its host µs a call
+    beside its kernel's device µs; then on a side stream."""
+    import torch
     out = []
     for kind in ("probe", "probe_range"):
         (build, keys), kw = recorded[kind]
         table = kw["table"]
-        scalars = (table.bias, table.shift)
+        if not torch.equal(build, table.build):
+            raise AssertionError(f"{kind}: recorded build keys are not "
+                                 "the table's")
+        build = table.build          # a call passes its table's keys
         n, s = keys.numel(), build.numel()
-        if kind == "probe":
-            kern = lambda: hj.sorted_probe(build, keys, table=table)  # noqa: E731
-            plain = lambda: hj.sorted_probe_plain(build, keys, scalars,  # noqa: E731
-                                                  table.starts)
-            lib = lambda: torch.searchsorted(build, keys)  # noqa: E731
-            out_bytes = 4 + 1
-        else:
-            kern = lambda: hj.sorted_probe_range(build, keys,  # noqa: E731
-                                                 table=table)
-            plain = lambda: hj.sorted_probe_range_plain(  # noqa: E731
-                build, keys, scalars, table.starts)
-            lib = lambda: (torch.searchsorted(build, keys),  # noqa: E731
-                           torch.searchsorted(build, keys, right=True))
-            out_bytes = 4 + 4 + 1
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = 0
-        for g, w in zip(got, want):
-            if not torch.equal(g, w):
-                raise AssertionError(f"{kind}: kernel != plain version")
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
-                               .abs().max()))
+        kern, plain, lib, out_bytes = probe_calls(kind, build, keys, table)
+        err = probe_equal(kind, kern, plain, n, s)
+        split = host_device_us(kern)
         row = {"name": kind, "route": "cuda",
                "source": "src/repro_torch/csrc/hash_join.cu",
                "replaces": ("src/repro/kernels/hash_join.py:93"
                             if kind == "probe"
                             else "src/repro/kernels/hash_join.py:151"),
-               "launches": launches[kind], "max_abs_err": float(err),
+               "launches": launches[kind], "max_abs_err": err,
                "bound_ms": bound_ms((4 + out_bytes) * n),
                "bound_by": "bytes", **kernel_times(kern, plain, lib)}
-        log("kernel", **row, n=n, build=s, matched=int(got[-1].sum()))
+        log("kernel", **row, n=n, build=s, matched=int(kern()[-1].sum()),
+            host_us=split["host_us_per_call"],
+            device_us=sum(split["device_us_per_call"].values()),
+            device_us_by_kernel=split["device_us_per_call"])
         out.append({k: row[k] for k in ROW_KEYS})
+    check_probe_side_stream()
     return out
 
 
-def segment_host_device_us(kern, calls: int = 200) -> dict:
+def host_device_us(kern, host_calls: int = 500, prof_calls: int = 200
+                   ) -> dict:
     """Where a wrapper call's time goes: host µs a call (``perf_counter``
-    over ``calls`` calls enqueued back to back, then one wait), and the
-    device µs a call of each kernel and copy it ran (``torch.profiler``
-    over ``calls`` more)."""
+    over ``host_calls`` calls enqueued back to back, then one wait), and
+    the device µs a call of each kernel and copy it ran
+    (``torch.profiler`` over ``prof_calls`` more)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1274,19 +1360,19 @@ def segment_host_device_us(kern, calls: int = 200) -> dict:
         kern()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(calls):
+    for _ in range(host_calls):
         kern()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+        for _ in range(prof_calls):
             kern()
         torch.cuda.synchronize()
-    device = {evt.key[:60]: evt.self_device_time_total / calls
+    device = {evt.key[:60]: evt.self_device_time_total / prof_calls
               for evt in prof.key_averages()
               if evt.device_type == DeviceType.CUDA}
-    return {"host_us_per_call": host_s / calls * 1e6,
+    return {"host_us_per_call": host_s / host_calls * 1e6,
             "device_us_per_call": device}
 
 
@@ -1365,7 +1451,7 @@ def check_segment_reduce(recorded, launches):
         kern()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    split = segment_host_device_us(kern)
+    split = host_device_us(kern)
     row = {"name": "segment_reduce", "route": "cuda",
            "source": "src/repro_torch/csrc/segment_reduce.cu",
            "replaces": "src/repro/kernels/segment_reduce.py:43",

@@ -1,30 +1,37 @@
 #!/usr/bin/env python3
 """Time the probe wrappers of two checkouts on one GPU, in turns.
 
-    python3 scripts/probe_launch_path.py OTHER_CHECKOUT
+    python3 scripts/probe_launch_path.py OTHER_CHECKOUT [--rounds R]
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit. It runs one process per turn, this checkout, OTHER_CHECKOUT,
-OTHER_CHECKOUT, this checkout, each importing ``repro_torch`` from its own
+toolkit. It runs one process per turn, in R rounds (1 by default) of
+this checkout, OTHER_CHECKOUT, OTHER_CHECKOUT, this checkout, each
+importing ``repro_torch`` from its own
 ``src/`` (and building its own ``csrc/hash_join.cu``). Each makes, from a
 numpy seed, inputs at the query path's shapes (the probe: 5,265 keys, all
 present, into 187,500 sorted distinct keys; the range probe: 187,500 keys
 into 5,059 sorted keys with duplicates), prepares each build side once as
-the engine does (``probe_table`` where the checkout has it, else
-``prepare_buckets`` with the starts copied to the card), checks that the
-wrappers' results equal their plain versions', and times with CUDA events
-(median of five batches of 20 calls after warm-up) each wrapper call, and
-``torch.searchsorted`` on the same inputs (two calls for the range
-probe). Then, in one more process of this checkout, it times on the host
-(``perf_counter`` around 500 calls of each, nothing synchronised inside)
-each step of ``sorted_probe``'s launch path, the whole wrapper call, the
-steps the launch path no longer takes (``was_*``: the starts copied to
-the device, the scalars through numpy, a device context, a uint8 match
-viewed as bool) and forms it does not take (``alt_*``). Prints the card's
-name and power limit, then one JSON line per turn and one for the steps.
+the engine does (``probe_table``, passing the table's own build keys
+where its table holds them, else ``prepare_buckets`` with the starts
+copied to the card), checks that the wrappers' results equal their plain
+versions', and times each wrapper call with CUDA events (median of five
+batches of 20 calls after warm-up) beside ``torch.searchsorted`` on the
+same inputs (two calls for the range probe); on the card also the host
+µs a call (``perf_counter`` over 500 calls, one wait at the end) and the
+device µs a call (``torch.profiler`` over 200 calls), with
+``chip_smoke.host_device_us``. Then, in one more process of this
+checkout, it times on the host (``perf_counter`` around 500 calls of
+each, nothing synchronised inside; five rounds, the median and fastest
+kept) each step of the probes' launch path (the checks, an output tensor
+each by ``new_empty``, the raw stream, the pointers, the ctypes call and
+launch, the whole wrapper call) and forms it does not take (``alt_*``:
+one buffer viewed as the outputs, the outputs by ``torch.empty`` or
+``empty_like``, the public stream getter). Prints the card's name and
+power limit, then one JSON line per turn and one for the steps.
 
 ``--device cpu`` runs the turns on the CPU (plain versions, host clock,
-no host steps), to rehearse them; its times are no device times.
+no host or device split, no steps), to rehearse them; its times are no
+device times.
 """
 from __future__ import annotations
 
@@ -88,6 +95,10 @@ def worker(tree: pathlib.Path, device: str) -> dict:
             kw = {"table": hj.probe_table(b, device)}
             scalars, starts = (kw["table"].bias, kw["table"].shift), \
                 kw["table"].starts
+            # A table that holds its build keys is called with them.
+            build = getattr(kw["table"], "build", None)
+            build = torch.from_numpy(b).to(device) if build is None \
+                else build
         else:
             scalars, starts_np = hj.prepare_buckets(b)
             starts = torch.from_numpy(starts_np).to(device)
@@ -107,73 +118,88 @@ def worker(tree: pathlib.Path, device: str) -> dict:
         out[f"{kind}_ms"] = time_ms(call, device)
         out[f"{kind}_searchsorted_ms"] = time_ms(lib, device)
         out[f"{kind}_n"], out[f"{kind}_build"] = len(k), len(b)
+        if device == "cuda":
+            sys.path.insert(0, str(ROOT))
+            from chip_smoke import host_device_us
+            for name, fn in ((kind, call), (f"{kind}_searchsorted", lib)):
+                split = host_device_us(fn)
+                out[f"{name}_host_us"] = split["host_us_per_call"]
+                out[f"{name}_device_us"] = sum(
+                    split["device_us_per_call"].values())
+                out[f"{name}_device_us_by_kernel"] = \
+                    split["device_us_per_call"]
     return out
 
 
-def host_steps(tree: pathlib.Path, reps: int = 500) -> dict:
-    """Host microseconds per call of each step of this checkout's
-    ``sorted_probe`` launch path at the probe's inputs (see the module
-    docstring)."""
+def host_steps(tree: pathlib.Path, reps: int = 500, rounds: int = 5) -> dict:
+    """Host microseconds per call of each step of this checkout's probe
+    launch path at the probes' inputs (see the module docstring)."""
     sys.path.insert(0, str(tree / "src"))
     import numpy as np
     import torch
     from repro_torch.kernels import hash_join as hj
-    (b, k), _ = inputs(np)
-    build, keys = torch.from_numpy(b).cuda(), torch.from_numpy(k).cuda()
-    table = hj.probe_table(b, "cuda")
+    (b, k), (rb, rk) = inputs(np)
+    table, rtable = hj.probe_table(b, "cuda"), hj.probe_table(rb, "cuda")
+    build, keys = table.build, torch.from_numpy(k).cuda()
+    rbuild, rkeys = rtable.build, torch.from_numpy(rk).cuda()
     n, s, dev = len(k), len(b), table.device_index
-    probe = hj._fns()[0]
-    pos = torch.empty(n, dtype=torch.int32, device=keys.device)
-    match = torch.empty(n, dtype=torch.bool, device=keys.device)
-    match_u8 = match.view(torch.uint8)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (table.starts.data_ptr(), build.data_ptr(), keys.data_ptr(),
-            pos.data_ptr(), match.data_ptr())
-    scalars = np.asarray([table.bias, table.shift], np.int32)
+    fn = hj._fns()[False]
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    match = torch.empty(n, dtype=torch.bool, device=dev)
+    stream = hj._STREAM(dev)
+    ptrs = (keys.data_ptr(), pos.data_ptr(), match.data_ptr())
 
-    def device_context():
-        with torch.cuda.device(keys.device):
-            pass
+    def checks():
+        hj._checked(build, keys, table)
+        hj._cuda_checked(keys, n, table)
 
-    def one_empty():
-        buf = torch.empty(n + (n + 3) // 4, dtype=torch.int32,
-                          device=keys.device)
-        return buf[:n], buf[n:].view(torch.bool)[:n]
+    def one_buffer(m, ints):
+        out = torch.empty((4 * ints + 1) * m, dtype=torch.uint8, device=dev)
+        *parts, flags = out.split_with_sizes((4 * m,) * ints + (m,))
+        return [x.view(torch.int32) for x in parts] + [flags.view(torch.bool)]
+    m = len(rk)
     steps = {
-        "checks": lambda: hj._resolve(build, keys, table),
-        "outputs": lambda: (torch.empty_like(keys),
-                            torch.empty_like(keys, dtype=torch.bool)),
-        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
-        "data_ptrs": lambda: (table.starts.data_ptr(), build.data_ptr(),
-                              keys.data_ptr(), pos.data_ptr(),
+        "checks": checks,
+        "outputs": lambda: (keys.new_empty(n),
+                            keys.new_empty(n, dtype=torch.bool)),
+        "raw_stream": lambda: hj._STREAM(dev),
+        "data_ptrs": lambda: (keys.data_ptr(), pos.data_ptr(),
                               match.data_ptr()),
-        "ctypes_launch": lambda: probe(*ptrs, n, s, table.bias, table.shift,
-                                       dev, stream),
+        "ctypes_launch": lambda: fn(table.args_ptr, *ptrs, n, stream),
         "whole_call": lambda: hj.sorted_probe(build, keys, table=table),
-        "was_as_tensor_starts": lambda: torch.as_tensor(
-            table.starts, dtype=torch.int32, device=keys.device),
-        "was_np_asarray_scalars": lambda: (np.asarray(scalars),
-                                           int(scalars[0]), int(scalars[1])),
-        "was_device_context": device_context,
-        "was_view_bool": lambda: match_u8.view(torch.bool),
-        "alt_outputs_sized": lambda: (
-            torch.empty(n, dtype=torch.int32, device=keys.device),
-            torch.empty(n, dtype=torch.bool, device=keys.device)),
-        "alt_one_empty_two_views": one_empty,
+        "range_outputs": lambda: (rkeys.new_empty(m), rkeys.new_empty(m),
+                                  rkeys.new_empty(m, dtype=torch.bool)),
+        "range_whole_call": lambda: hj.sorted_probe_range(
+            rbuild, rkeys, table=rtable),
+        "alt_outputs_one_buffer": lambda: one_buffer(n, 1),
+        "alt_outputs_empty": lambda: (
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev)),
+        "alt_outputs_empty_like": lambda: (
+            torch.empty_like(keys), torch.empty_like(keys, dtype=torch.bool)),
+        "alt_range_outputs_one_buffer": lambda: one_buffer(m, 2),
+        "alt_public_stream": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
     }
-    raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw_stream is not None:
-        steps["alt_raw_stream"] = lambda: raw_stream(dev)
+    # Rounds over every step in turn: the host's noise moves whole
+    # rounds, so each step reports its median and fastest round.
+    per = {name: [] for name in steps}
+    for _ in range(rounds):
+        for name, step in steps.items():
+            for _ in range(20):
+                step()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step()
+            per[name].append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
     out = {}
-    for name, fn in steps.items():
-        for _ in range(20):
-            fn()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        out[f"{name}_us"] = (time.perf_counter() - t0) / reps * 1e6
-        torch.cuda.synchronize()
-    return {"tree": str(tree), "n": n, "build": s, "reps": reps, **out}
+    for name, us in per.items():
+        us.sort()
+        out[f"{name}_us"] = us[len(us) // 2]
+        out[f"{name}_us_min"] = us[0]
+    return {"tree": str(tree), "n": n, "build": s, "range_n": len(rk),
+            "range_build": len(rb), "reps": reps, "rounds": rounds, **out}
 
 
 def main(argv) -> int:
@@ -186,7 +212,10 @@ def main(argv) -> int:
     if "--steps" in argv:
         print(json.dumps(host_steps(ROOT)))
         return 0
-    others = [a for a in argv if not a.startswith("--") and a != device]
+    rounds = int(argv[argv.index("--rounds") + 1]) if "--rounds" in argv \
+        else 1
+    others = [a for i, a in enumerate(argv) if not a.startswith("--")
+              and argv[i - 1] not in ("--device", "--rounds")]
     if len(others) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -201,7 +230,7 @@ def main(argv) -> int:
                              text=True, check=True).stdout.strip())
     other = pathlib.Path(others[0]).resolve()
     runs = [["--worker", str(tree), "--device", device]
-            for tree in (ROOT, other, other, ROOT)]
+            for _ in range(rounds) for tree in (ROOT, other, other, ROOT)]
     if device == "cuda":
         runs.append(["--steps"])
     for args in runs:

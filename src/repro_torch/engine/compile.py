@@ -711,8 +711,7 @@ class _FusedTail:
                 bpay_out[c] = v
             if c in right_in:
                 bpay_dev[c] = _to_device(v, device)
-        prep = (torch.from_numpy(bs).to(device), has_dups, table, bpay_dev,
-                bpay_out)
+        prep = (table.build, has_dups, table, bpay_dev, bpay_out)
         self._build_prep = (rkeys, prep_key, prep)
         return prep
 
