@@ -49,8 +49,13 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    than the default, where their raw stream getter must return that
    stream; the segmented reduction through the host offsets the engine
    passes and through ids (derived on the card), with no wait for the
-   card inside the call; each row's launches are those of phases 3, 5
-   and 6 and the paper phase;
+   card inside the call, and through ids in any order (its sort route:
+   Q1's recorded values with the rows permuted, in every mode, and 300
+   and 70,000 segments, two and three radix passes, with -1 scattered;
+   one sort a call, bit-equal to the plain version on the current and
+   on a side stream, timed beside ``index_add_``/``scatter_reduce_``);
+   each row's launches are those of phases 3, 5 and 6 and the paper
+   phase, none of which may run the sort route;
 8. serve  — ``ServingEngine`` answers 8 requests of 1,024-4,096 prompt
    tokens and 32 new tokens each, in two batches of 4, with each of three
    models at full width and depth (random bf16 weights from a seeded
@@ -201,7 +206,14 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    is held against its plain version on every input shape
    ``serverless_serving`` gave it (float32 at head dim 16: the CUDA-core
    route, ``csrc/flash_attention.cu``), and that route gets its own row
-   of the kernels line.
+   of the kernels line. No sort route may run.
+15. domains — head dims no served model has, which the Pallas kernels
+   take: flash attention at D = 6, 36 and 320 (1 x 4,096 tokens, 8 heads,
+   2 KV heads; causal, D = 36 with a 1,024-key window), float32 and bf16,
+   on the CUDA-core route; the RWKV-6 scan at K = V = 128 and at K = 128,
+   V = 160 (4 x 4,096 tokens, 16 heads, bf16) on its one-step-at-a-time
+   route; each against its plain version, timed, with a row of the
+   kernels line (its launches: its route's on the main paths).
 14. dryrun — (run right after the distributed phase) the compile-only
    dry run (``repro_torch.launch.dryrun``: a step traced as rank 0 of a
    fake world on fake tensors on the card, its counts extrapolated over
@@ -256,7 +268,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 RTOL = 1e-6
 QUERIES = ("q1", "q6", "q12", "dup_key_join")
 PHASES = ("queries", "query_serving", "adaptive", "paper", "serve",
-          "train", "distributed", "dryrun", "examples")
+          "train", "distributed", "dryrun", "examples", "domains")
 # The phases that need the SF1 tables.
 QUERY_PHASES = ("queries", "query_serving", "adaptive", "paper")
 # The paper phase: Table 6's rows beside the paper's published values
@@ -279,6 +291,12 @@ ADAPTIVE_SEEDS = (0, 1, 2)
 CHAOS = {"drop_prob": 0.05, "kill_prob": 0.1}
 # The kernels the query engine's paths launch.
 QUERY_KERNELS = ("probe", "probe_range", "segment_reduce")
+# The segmented reduction's sort route (ids in any order), beside Q1's
+# permuted rows in every mode: the segment counts of its two- and
+# three-pass sorts, with this share of the ids -1, checked in these modes.
+SORT_SEGMENTS = (300, 70_000)
+SORT_PAD_SHARE = 0.05
+SORT_MODES = ("sum", "min")
 
 # The serving phases, each model at full width and depth: its kernel
 # route, and for each of its kernels the layer kind that launches it and
@@ -298,6 +316,13 @@ SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_SEED = 8, 32, 0
 # every head dim of the tensor-core flash kernel.
 INTERNLM2_ATTN = ((1, 4096, 16, 128), 8)
 MUSICGEN_ATTN = ((1, 4096, 24, 64), 24)
+# The domains phase: head dims no served model has, which the Pallas
+# kernels take. Flash attention's CUDA-core route at (B, S, H, Hkv) and
+# each (D, causal, window); the RWKV-6 scan's one-step-at-a-time route at
+# (B, S, H, K, V), RWKV-6 1.6B's width in heads of 128.
+FLASH_DOMAIN_SHAPE = (1, 4096, 8, 2)
+FLASH_DOMAINS = ((6, True, 0), (36, True, 1024), (320, True, 0))
+RWKV_DOMAINS = ((4, 4096, 16, 128, 128), (4, 4096, 16, 128, 160))
 # Largest |kernel route - reference route| last-token logit allowed, per
 # model: 2.5 times the largest difference between two sound routes of the
 # model measured on an H100 (reasons and readings in PERF.md). For an MoE
@@ -517,15 +542,18 @@ def _route_counters():
     flash attention's tensor-core route (bf16 at D = 64, 128, 256), the
     grouped matmul's (bf16 with D and F multiples of 8), the RWKV-6
     scan's (K = V = 64) and the RG-LRU scan's TMA route (W * 4 a multiple
-    of 16 bytes)."""
+    of 16 bytes); and the segmented reduction's sorts of unsorted ids,
+    which no main path may run."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.kernels import segment_reduce as sr
     return {"flash_attention_tc": (fa, "FLASH_ATTENTION_TC_LAUNCHES"),
             "gmm_tc": (mg, "GMM_TC_LAUNCHES"),
             "rwkv6_scan_tc": (rs, "RWKV6_SCAN_TC_LAUNCHES"),
-            "rglru_scan_tma": (rg, "RGLRU_SCAN_TMA_LAUNCHES")}
+            "rglru_scan_tma": (rg, "RGLRU_SCAN_TMA_LAUNCHES"),
+            "segment_sort": (sr, "SEGMENT_SORT_LAUNCHES")}
 
 
 # The kernels whose every launch in ``serve`` must take their redesigned
@@ -596,6 +624,7 @@ def run_queries(store, keys):
         for r in recorders.values():
             r.restore()
     launches = query_launches()
+    require_no_sort("queries")
     fallbacks = dict(tc.FALLBACK_STATS)
     wants = {}
     for name in QUERIES:
@@ -620,6 +649,17 @@ def run_queries(store, keys):
 
 def query_launches() -> dict:
     return {k: n for k, n in launch_counts().items() if k in QUERY_KERNELS}
+
+
+def require_no_sort(phase: str) -> None:
+    """The engine passes the groups' host offsets: no main path may run
+    the segmented reduction's sort route (counted from the phase's
+    reset)."""
+    sorts = route_counts()["segment_sort"]
+    log("segment_sorts", of=phase, launches=sorts)
+    if sorts:
+        raise AssertionError(f"{phase}: the segmented reduction's sort "
+                             f"route ran {sorts} times")
 
 
 def require_launches(phase: str, launches: dict, kernels) -> None:
@@ -655,6 +695,7 @@ def serve_queries(store, keys, wants, names=SERVING_QUERIES,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = query_launches()
+    require_no_sort("query_serving")
     if report.failures:
         raise AssertionError(f"query_serving: {report.failures} failed")
     for name, served in zip(names, report.queries):
@@ -774,6 +815,7 @@ def run_adaptive(store, keys, wants):
     finally:
         store.chaos = None
     launches = query_launches()
+    require_no_sort("adaptive")
     require_launches("adaptive", launches, ("probe", "probe_range"))
     log("adaptive_phase", seconds=time.perf_counter() - t_phase,
         launches=launches)
@@ -913,6 +955,7 @@ def table6_on_card(store, keys, size: str) -> dict:
     torch.cuda.synchronize()
     us = (time.perf_counter() - t0) * 1e6
     launches = query_launches()
+    require_no_sort(f"paper Table 6 ({size})")
     ref = Coordinator(store, backend="numpy")
     for t, k in keys.items():
         ref.register_table(t, k)
@@ -1151,6 +1194,7 @@ def run_examples() -> tuple:
         rec.restore()
     torch.cuda.synchronize()
     launches, routes = launch_counts(), route_counts()
+    require_no_sort("examples")
     done = sv["done"]
     if sorted(r.request_id for r in done) != list(range(10)) or any(
             r.completion.shape != (8,) or r.completion.max()
@@ -1480,7 +1524,107 @@ def check_segment_reduce(recorded, launches):
         for m in ("sum", "count", "min", "max"):
             log("kernel_sweep", name="segment_reduce", columns=5, n=n,
                 segments=S, mode=m, **one(q1, offs, m))
+    del q1
+    check_segment_unsorted(vals, offsets, mode)
     return [{k: row[k] for k in ROW_KEYS}]
+
+
+def check_segment_unsorted(vals, offsets, mode) -> None:
+    """The sort route (ids in any order): Q1's recorded values and their
+    groups' ids, the rows permuted by a numpy permutation from seed 0
+    (rows past the last group -1), in every mode; then the same values
+    against ``SORT_SEGMENTS`` segments (two and three radix passes), ids
+    drawn at random with ``SORT_PAD_SHARE`` of them -1, in
+    ``SORT_MODES``. Each call must run one sort, equal the plain version
+    bit for bit, on the current stream and on a side stream, and hold
+    sums and counts within RTOL of float64 and min and max exactly (to
+    ``scatter_reduce_``'s, exact in any order). Timed beside the bytes
+    bound (ids and values read once, results written once), the plain
+    version and the library call (``index_add_`` for sum and count,
+    ``scatter_reduce_`` amin/amax), with the sort's own share."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import segment_reduce as sr
+    c, n = vals.shape
+    host = vals.cpu().numpy()
+    groups = len(offsets) - 1
+    ids = np.full(n, -1, np.int32)
+    ids[:offsets[-1]] = np.repeat(np.arange(groups, dtype=np.int32),
+                                  np.diff(offsets))
+    perm = np.random.default_rng(0).permutation(n)
+    cases = [("q1_permuted", host[:, perm], ids[perm], groups, m)
+             for m in ("sum", "count", "min", "max")]
+    rng = np.random.default_rng(1)
+    for segs in SORT_SEGMENTS:
+        drawn = rng.integers(0, segs, n).astype(np.int32)
+        drawn[rng.random(n) < SORT_PAD_SHARE] = -1
+        cases += [(f"segments_{segs}", host, drawn, segs, m)
+                  for m in SORT_MODES]
+    side = torch.cuda.Stream()
+    for case, vh, ih, segs, m in cases:
+        v = torch.from_numpy(np.ascontiguousarray(vh)).to(DEVICE)
+        i = torch.from_numpy(ih).to(DEVICE)
+        kern = lambda: sr.segment_reduce(  # noqa: E731
+            v, i, num_segments=segs, mode=m)
+        plain = lambda: sr.segment_reduce_plain(v, i, segs, m)  # noqa: E731
+        key = torch.where(i < 0, segs, i).long()
+        src = torch.ones_like(v) if m == "count" else v
+        if m in ("sum", "count"):
+            lib = lambda: torch.zeros(  # noqa: E731
+                (c, segs + 1), device=DEVICE).index_add_(1, key, src)
+        else:
+            init = math.inf if m == "min" else -math.inf
+            key2 = key.expand(c, n).contiguous()
+            lib = lambda: torch.full(  # noqa: E731
+                (c, segs + 1), init, device=DEVICE).scatter_reduce_(
+                1, key2, v, "amin" if m == "min" else "amax",
+                include_self=False)
+        sorts0 = sr.SEGMENT_SORT_LAUNCHES
+        got = kern()
+        sorts = sr.SEGMENT_SORT_LAUNCHES - sorts0
+        want = plain()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            got_side = kern()
+        side.synchronize()
+        torch.cuda.synchronize()
+        if sorts != 1 or not (torch.equal(got, want)
+                              and torch.equal(got_side, want)):
+            raise AssertionError(f"segment_reduce unsorted {case} {m}: "
+                                 f"{sorts} sorts, kernel == plain "
+                                 f"{torch.equal(got, want)}, on a side "
+                                 f"stream {torch.equal(got_side, want)}")
+        g = got.double().cpu().numpy()
+        valid = ih >= 0
+        if m in ("min", "max"):
+            np.testing.assert_array_equal(
+                g, lib()[:, :segs].double().cpu().numpy())
+            rel = 0.0
+        else:
+            exact = np.stack([np.bincount(
+                ih[valid], weights=None if m == "count" else col[valid],
+                minlength=segs).astype(np.float64) for col in vh])
+            np.testing.assert_allclose(g, exact, rtol=RTOL)
+            rel = float((np.abs(g - exact) / np.maximum(np.abs(exact),
+                                                        1e-300)).max())
+        value_bytes = 0 if m == "count" else 4 * c * n
+        per_sort = time_spread(lambda: sr._sort_cuda(v, i, segs, m))
+        times = kernel_times(kern, plain, lib)
+        log("kernel_unsorted", name="segment_reduce", route="cuda",
+            source="src/repro_torch/csrc/segment_reduce.cu",
+            replaces="src/repro/kernels/segment_reduce.py:43", case=case,
+            mode=m, columns=c, n=n, segments=segs,
+            radix_passes=sr.radix_passes(segs), sorts_per_call=sorts,
+            max_abs_err=float((got - want).abs().max()),
+            side_stream_equal=True, max_rel_err_f64=rel,
+            bound_ms=bound_ms(4 * n + value_bytes + 4 * c * segs),
+            bound_by="bytes", **times,
+            sort_ms=per_sort[len(per_sort) // 2],
+            sort_share=per_sort[len(per_sort) // 2] / times["ms"])
+        del v, i, key, src, lib, got, want, got_side
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2345,6 +2489,127 @@ def check_rwkv6(recorded, launches):
         ragged_max_abs_err=ragged_err,
         log_w_range=[float(lw.min()), float(lw.max())])
     return [{key: row[key] for key in ROW_KEYS}]
+
+
+def check_domains(fma_launches: int) -> list:
+    """Phase ``domains``: head dims that no served model has and the
+    Pallas kernels take. Flash attention at ``FLASH_DOMAINS`` (D = 6, 36
+    and 320) in float32 and bf16, every call on the CUDA-core route,
+    against its plain version (F32_ATTN_TOL, BF16_TOL); the RWKV-6 scan
+    at ``RWKV_DOMAINS`` (K = V = 128, and V = 160), bf16 r, k, v, on its
+    one-step-at-a-time route, against its plain version (the outputs
+    within BF16_TOL and the final state within RWKV_TOL of the size of
+    its terms). Each is timed and gets a row of the kernels line; a
+    row's launches are its route's on the main paths (the examples'
+    CUDA-core flash launches; none of the seq route)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rs
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    rows = []
+    b, s, h, hkv = FLASH_DOMAIN_SHAPE
+    for d, causal, window in FLASH_DOMAINS:
+        for dtype in (torch.float32, torch.bfloat16):
+            opts = dict(dtype=dtype, device=DEVICE, generator=gen)
+            q = torch.randn((b, s, h, d), **opts)
+            k, v = (torch.randn((b, s, hkv, d), **opts) for _ in range(2))
+            kern = lambda: fa.flash_attention(  # noqa: E731
+                q, k, v, causal=causal, window=window)
+            plain = lambda: fa.flash_attention_plain(  # noqa: E731
+                q, k, v, causal=causal, window=window)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            qp = torch.arange(s, device=DEVICE)[:, None]
+            kp = torch.arange(s, device=DEVICE)[None, :]
+            band = (kp <= qp) & (kp > qp - window) if window else kp <= qp
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+            n0, tc0 = fa.FLASH_ATTENTION_LAUNCHES, \
+                fa.FLASH_ATTENTION_TC_LAUNCHES
+            got = kern()
+            if fa.FLASH_ATTENTION_LAUNCHES != n0 + 1 or \
+                    fa.FLASH_ATTENTION_TC_LAUNCHES != tc0:
+                raise AssertionError(f"flash attention D = {d} {dtype}: "
+                                     "not one launch of the CUDA-core route")
+            want = plain()
+            torch.cuda.synchronize()
+            f32 = dtype == torch.float32
+            tol = F32_ATTN_TOL if f32 else BF16_TOL
+            err = within(got, want, tol)
+            pairs = band_pairs(s, s, causal, window)
+            flops = 4.0 * b * h * d * pairs
+            nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) \
+                * q.element_size()
+            rate = F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
+            t_ops, t_bytes = flops / rate * 1e3, bound_ms(nbytes)
+            row = {"name": "flash_attention", "route": "cuda",
+                   "source": "src/repro_torch/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:22",
+                   "launches": fma_launches, "max_abs_err": err,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes
+                   else "bytes", **kernel_times(kern, plain, lib)}
+            log("kernel", **row, case=f"head_dim_{d}", shape=[b, s, h, d],
+                kv_heads=hkv, dtype=str(dtype), causal=causal,
+                window=window, kernel_route=fa._route(dtype, d), tol=tol,
+                tflops_per_s=flops / row["ms"] / 1e9)
+            rows.append({key: row[key] for key in ROW_KEYS})
+            del q, k, v, qt, kt, vt, band, got, want
+    f32 = dict(dtype=torch.float32, device=DEVICE, generator=gen)
+    for b, s, h, kd, vd in RWKV_DOMAINS:
+        r, k = (torch.randn((b, s, h, kd), **f32).mul_(0.5).bfloat16()
+                for _ in range(2))
+        v = torch.randn((b, s, h, vd), **f32).mul_(0.5).bfloat16()
+        lw = -torch.exp(torch.randn((b, s, h, kd), **f32) - 2.0)
+        u = torch.randn((h, kd), **f32) * 0.3
+        s0 = torch.randn((b, h, kd, vd), **f32) * 0.1
+        kern = lambda: rs.rwkv6_scan(r, k, v, lw, u, s0)  # noqa: E731
+        plain = lambda: rs.rwkv6_scan_plain(  # noqa: E731
+            r, k, v, lw, u, s0)
+        if rs._route(r.dtype, kd, vd) != "seq":
+            raise AssertionError(f"rwkv6_scan K = {kd}, V = {vd}: not the "
+                                 "seq route")
+        n0, tc0 = rs.RWKV6_SCAN_LAUNCHES, rs.RWKV6_SCAN_TC_LAUNCHES
+        (g_o, g_s), (w_o, w_s) = kern(), plain()
+        if rs.RWKV6_SCAN_LAUNCHES != n0 + 1 or \
+                rs.RWKV6_SCAN_TC_LAUNCHES != tc0:
+            raise AssertionError(f"rwkv6_scan K = {kd}, V = {vd}: not one "
+                                 "launch of the seq route")
+        # Term sizes for the bound of the error: the recurrence on
+        # absolute values, in float32 on the chunked form's plain path.
+        o_mag, s_mag = rs.rwkv6_scan_plain(r.abs(), k.abs(), v.abs(), lw,
+                                           u.abs(), s0.abs())
+        torch.cuda.synchronize()
+        err = within_scan(g_o, w_o, o_mag.double(), BF16_TOL)
+        state_err = within_scan(g_s, w_s, s_mag.double(), 0.0)
+        per = time_spread(kern)
+        nbytes = (r.numel() + k.numel() + v.numel() + g_o.numel()) \
+            * r.element_size() + 4 * (lw.numel() + u.numel()
+                                      + 2 * s0.numel())
+        tc_flops = b * h * s * 4 * kd * vd
+        cc_flops = b * h * s * 2 * RWKV_CHUNK * (kd + vd)
+        t_ops = (tc_flops / TF32_FLOPS_PER_S
+                 + cc_flops / F32_FLOPS_PER_S) * 1e3
+        t_bytes = bound_ms(nbytes)
+        row = {"name": "rwkv6_scan", "route": "cuda",
+               "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+               "replaces": "src/repro/kernels/rwkv6_scan.py:27",
+               "launches": 0, "max_abs_err": err,
+               "ms": per[len(per) // 2], "ms_min": per[0],
+               "ms_max": per[-1], "plain_ms": time_ms(plain),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": None}
+        log("kernel", **row, case=f"k{kd}_v{vd}", shape=[b, s, h, kd, vd],
+            dtype=str(r.dtype), kernel_route=rs._route(r.dtype, kd, vd),
+            state_max_abs_err=state_err, tol=RWKV_TOL,
+            sequential_form_ops_ms=b * h * s * (5 * kd * vd + 3 * kd
+                                                + 2 * vd)
+            / F32_FLOPS_PER_S * 1e3)
+        rows.append({key: row[key] for key in ROW_KEYS})
+        del r, k, v, lw, u, s0, g_o, g_s, w_o, w_s, o_mag, s_mag
+    torch.cuda.empty_cache()
+    return rows
 
 
 def column_blocks(err, width: int = 64) -> list[float]:
@@ -4829,13 +5094,19 @@ def main() -> int:
     if "dryrun" in PHASES:
         run_dryrun(smi, measured)
         log("elapsed", after="dryrun", seconds=time.perf_counter() - started)
+    fma = 0
     if "examples" in PHASES:
         example_launches, example_rows = run_examples()
         for row in kernels:
             row["launches"] += example_launches[row["name"]]
         kernels += example_rows
+        fma = sum(row["launches"] for row in example_rows
+                  if row["source"].endswith("/flash_attention.cu"))
         log("elapsed", after="examples",
             seconds=time.perf_counter() - started)
+    if "domains" in PHASES:
+        kernels += check_domains(fma)
+        log("elapsed", after="domains", seconds=time.perf_counter() - started)
 
     if failures:
         raise AssertionError("; ".join(failures))

@@ -21,9 +21,12 @@
 //   the tile, and lane j owns key j of each 32-key tile. A row's scores
 //   therefore live in one warp, and its max and sum are warp shuffles.
 // - Q (the block's 32 rows), K and V tiles are converted to float32 in
-//   dynamic shared memory (99 KB at D=256, above the 48 KB static limit).
-//   Q and K rows are padded by 4 floats, so each lane's float4 read of its
-//   own K row hits its own banks while the Q reads broadcast.
+//   dynamic shared memory (99 KB at D=256, 198 KB at D=512, above the
+//   48 KB static limit). Rows are held D rounded up to 4 floats wide, the
+//   tail zero-filled; Q and K rows are padded by 4 more floats, so each
+//   lane's float4 read of its own K row hits its own banks while the Q
+//   reads broadcast. A head dim that is a multiple of 4 is read as
+//   4-element vectors, any other one element at a time.
 // - P@V: lane j's probability reaches the warp by __shfl_sync; each lane
 //   accumulates columns lane, lane+32, ... of its warp's four rows.
 // - Masks come from absolute positions (causal k <= q, window
@@ -32,10 +35,11 @@
 //   online sums. Masked scores take the finite NEG_INF of the reference,
 //   with its `safe` guard and its 1e-20 denominator floor, so a fully
 //   masked row gives 0 as the TPU kernel does.
-// - Any Sq and Skv; D a multiple of 4 up to 256; float32 or bfloat16 in,
-//   output in q's dtype. Tensors are addressed through their batch, row
-//   and head strides (the last dimension contiguous), so the model's
-//   (B, S, H, D) layout needs no transposes.
+// - Any Sq and Skv; any D up to 512 (kMaxD: 16 output columns a lane;
+//   the tiles take 198 KB of the 227 KB a block may hold at D = 512);
+//   float32 or bfloat16 in, output in q's dtype. Tensors are addressed
+//   through their batch, row and head strides (the last dimension
+//   contiguous), so the model's (B, S, H, D) layout needs no transposes.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,6 +52,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = kBQ / kWarps;     // query rows per warp
 constexpr float kNegInf = -2.3819763e38f;
+constexpr int kMaxD = 512;              // largest head dim
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Strides {
@@ -65,6 +70,24 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 hi = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Elements c .. c + 3 of the row at p, zero from d on: one vector read
+// when `vec` (d a multiple of 4, rows 16-byte aligned), else one element
+// at a time.
+template <typename T>
+__device__ __forceinline__ float4 load_row4(const T* p, int c, int d,
+                                            bool vec) {
+  if (vec) return load4(p + c);
+  float x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = c + j < d ? to_float(p[c + j]) : 0.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -93,10 +116,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int window, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = d + 4;                 // padded Q / K row, in floats
+  const int d4 = (d + 3) / 4;
+  const int dp = 4 * d4;                // D rounded up to 4
+  const int ld = dp + 4;                // padded Q / K row, in floats
+  const bool vec = d % 4 == 0;
   float* q_sh = smem;                   // [kBQ][ld]
   float* k_sh = q_sh + kBQ * ld;        // [kBK][ld]
-  float* v_sh = k_sh + kBK * ld;        // [kBK][d]
+  float* v_sh = k_sh + kBK * ld;        // [kBK][dp]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -105,11 +131,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * ks.b + hk * ks.h;
   const T* vb = v + b * vs.b + hk * vs.h;
   T* ob = o + b * os.b + h * os.h;
-  const int d4 = d / 4;
 
   for (int i = tid; i < kBQ * d4; i += kThreads) {
     const int r = i / d4, c = (i - r * d4) * 4;
-    const float4 x = q0 + r < sq ? load4(qb + (q0 + r) * qs.s + c)
+    const float4 x = q0 + r < sq ? load_row4(qb + (q0 + r) * qs.s, c, d, vec)
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
     *reinterpret_cast<float4*>(q_sh + r * ld + c) = x;
   }
@@ -135,9 +160,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = k0 + r < skv;     // zeros past the ragged edge
       const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
       *reinterpret_cast<float4*>(k_sh + r * ld + c) =
-          ok ? load4(kb + (k0 + r) * ks.s + c) : zero;
-      *reinterpret_cast<float4*>(v_sh + r * d + c) =
-          ok ? load4(vb + (k0 + r) * vs.s + c) : zero;
+          ok ? load_row4(kb + (k0 + r) * ks.s, c, d, vec) : zero;
+      *reinterpret_cast<float4*>(v_sh + r * dp + c) =
+          ok ? load_row4(vb + (k0 + r) * vs.s, c, d, vec) : zero;
     }
     __syncthreads();
 
@@ -180,7 +205,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float pj[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) pj[r] = __shfl_sync(kFull, p[r], j);
-      const float* vrow = v_sh + j * d;
+      const float* vrow = v_sh + j * dp;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int col = lane + 32 * c;
@@ -211,8 +236,9 @@ int launch(const void* q, const void* k, const void* v, void* o,
            cudaStream_t stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
-  const int ld = d + 4;
-  const size_t bytes = sizeof(float) * (2 * kBQ * ld + kBK * d);
+  const int dp = 4 * ((d + 3) / 4);
+  const int ld = dp + 4;
+  const size_t bytes = sizeof(float) * (2 * kBQ * ld + kBK * dp);
   auto kernel = flash_attention_kernel<T, NC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -240,8 +266,11 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   if (d <= 128)
     return launch<T, 4>(q, k, v, o, st, batch, sq, skv, heads, group, d,
                         causal, window, scale, stream);
-  return launch<T, 8>(q, k, v, o, st, batch, sq, skv, heads, group, d,
-                      causal, window, scale, stream);
+  if (d <= 256)
+    return launch<T, 8>(q, k, v, o, st, batch, sq, skv, heads, group, d,
+                        causal, window, scale, stream);
+  return launch<T, 16>(q, k, v, o, st, batch, sq, skv, heads, group, d,
+                       causal, window, scale, stream);
 }
 
 }  // namespace
@@ -249,7 +278,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 // Plain C entry point (bound with ctypes). `strides` holds the batch, row
 // and head strides, in elements, of q, k, v and o (12 values); the last
 // dimension of each is contiguous. dtype: 0 float32, 1 bfloat16. The
-// caller guarantees 0 < d <= 256, d % 4 == 0, 16-byte aligned rows,
+// caller guarantees 0 < d <= 512, 16-byte aligned rows where d % 4 == 0,
 // heads % group == 0 and sq > 0. Launches on `stream`, never
 // synchronises, returns the CUDA error of the launch (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
@@ -259,8 +288,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int d, int causal, int window,
                                      float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d > 256 || d % 4 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 0 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, strides, batch, sq, skv, heads, group,
                            d, causal, window, scale, st);

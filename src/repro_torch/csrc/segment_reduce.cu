@@ -1,18 +1,22 @@
-// Deterministic segmented reduction (sum, count, min, max) over sorted,
-// contiguous segments: the aggregation kernel of the engine's hash_agg.
+// Deterministic segmented reduction (sum, count, min, max) by segment
+// ids in any order: the aggregation kernel of the engine's hash_agg.
 //
 // Replaces the TPU kernel src/repro/kernels/segment_reduce.py
 // (_segment_reduce_kernel), which expanded every row block against a
 // (block, segments) one-hot matrix and accumulated into one output block
-// across a sequential grid. The caller (engine.compile._run_hash_agg)
-// lexsorts the group keys first, so every segment is one contiguous run
-// of rows, given by its row offsets, and no one-hot layout is needed.
+// across a sequential grid, so it took ids in any order. Here the fold
+// runs over contiguous segments, given by their row offsets: the caller
+// (engine.compile._run_hash_agg) lexsorts the group keys first and passes
+// the offsets; ids that come sorted give their offsets in one pass; ids in
+// any other order are first sorted by a stable radix sort on the card.
 //
 // What bounds it on Hopper: memory bandwidth. Each value is read once and
 // added once (C * n flops against 4 * C * n bytes), far below the card's
 // ratio of operations to bytes. At the engine's shapes (a few columns,
 // a few segments, millions of rows) the kernel takes tens of microseconds,
-// so what the design cuts is launches and host synchronisations.
+// so what the design cuts is launches and host synchronisations. The
+// sort route reads and writes the keys and row indices once a pass and
+// the values once more, and waits for the card once more (its offsets).
 //
 // Design:
 // - One block of 256 threads per (segment, chunk of <= 1024 rows). The
@@ -38,8 +42,25 @@
 //   millions of rows). Min and max are exact in any order.
 // - repro_segment_offsets derives the offsets from sorted segment ids in
 //   one pass, for callers that hold ids rather than offsets: the thread of
-//   row i writes the start of every segment in (id[i-1], id[i]], and any
-//   row that breaks the layout sets an error word.
+//   row i writes the start of every segment in (id[i-1], id[i]]. A row
+//   whose id lies outside [-1, S) sets one error word, a row out of order
+//   (a descending id, a -1 before a valid id) another.
+// - repro_segment_sort takes ids that are not sorted: a stable LSD radix
+//   sort by the key id (-1 read as S), 8 bits a pass, as many passes as
+//   S + 1 needs (one up to S = 255, two to 65,535, three beyond). A pass
+//   is three kernels: a 256-bin histogram per tile of 4096 rows (shared
+//   int counts, warp-aggregated), an exclusive scan of the histograms in
+//   digit-major order (one block a digit; the digits' totals, summed by
+//   int atomics, give each digit's base), and a stable scatter, in which
+//   a row's rank among the equal digits of its tile comes from its
+//   position: __match_any_sync and a popcount within its warp, the
+//   counts of the warps before it in the round, and the rounds before.
+//   No rank comes from an atomic. The last pass writes the sorted ids
+//   (-1 again for key S) and gathers the value columns into id order;
+//   repro_segment_offsets then derives the offsets from the sorted ids,
+//   and the fold runs on the gathered values as on pre-sorted ones. So a
+//   sum associates exactly as for the same rows stably pre-sorted by id:
+//   the same bits, and the same O(log2 k * eps) error.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -226,25 +247,185 @@ void launch_fold(const float* v, int64_t ld_in, const int32_t* o,
 
 // Thread i of [0, n] writes offsets[s] = i for every s in (key(i - 1),
 // key(i)], where key(i) is ids[i], S for a -1 and for i = n, and
-// key(-1) = -1. Sets *err on an id out of [-1, S), a descending id, or a
-// -1 before a valid id.
-__global__ void segment_offsets_kernel(const int32_t* __restrict__ ids,
-                                       int64_t n, int32_t num_segments,
-                                       int32_t* __restrict__ offsets,
-                                       int32_t* __restrict__ err) {
+// key(-1) = -1. Sets err[0] on an id out of [-1, S) and err[1] on a row
+// out of order (a descending id, or a -1 before a valid id); the offsets
+// are then meaningless, and a block holding such a row writes none, so
+// unsorted ids cost no more than sorted ones (an ascending pair of them
+// would write up to S offsets).
+__global__ void __launch_bounds__(kThreads)
+segment_offsets_kernel(const int32_t* __restrict__ ids, int64_t n,
+                       int32_t num_segments, int32_t* __restrict__ offsets,
+                       int32_t* __restrict__ err) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
-  if (i > n) return;
   const int32_t id = i < n ? __ldg(ids + i) : -1;
-  const int32_t prev = i > 0 ? __ldg(ids + i - 1) : -1;
-  if (i < n && (id < -1 || id >= num_segments ||
-                (id >= 0 && i > 0 && (prev == -1 || id < prev)))) {
-    *err = 1;
-  }
+  const int32_t prev = i > 0 && i <= n ? __ldg(ids + i - 1) : -1;
+  const bool row = i < n;
+  const bool disorder = row && id >= 0 && i > 0 && (prev == -1 || id < prev);
+  if (row && (id < -1 || id >= num_segments)) err[0] = 1;
+  if (disorder) err[1] = 1;
+  if (__syncthreads_or(disorder) || i > n) return;
   const int32_t key = id == -1 ? num_segments : id;
   const int32_t pkey = i == 0 ? -1 : (prev == -1 ? num_segments : prev);
   const int32_t lo = max(pkey, -1) + 1, hi = min(key, num_segments);
   for (int32_t s = lo; s <= hi; ++s) offsets[s] = static_cast<int32_t>(i);
+}
+
+// ---- The radix sort of unsorted ids -------------------------------------
+
+constexpr int kBins = 256;                       // 8 bits a pass
+constexpr int kSortItems = 16;                   // rounds of rows a tile
+constexpr int kTile = kThreads * kSortItems;     // rows a block: 4096
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kThreads == kBins, "one thread a bin");
+
+// The sort key of an id or of an earlier pass's key: -1 reads as S.
+__device__ __forceinline__ int32_t sort_key(int32_t id, int32_t s) {
+  return id < 0 ? s : id;
+}
+
+// Block b counts the digits (key >> shift) & 255 of rows [4096 b,
+// 4096 b + 4096) into hist[digit * blocks + b] (digit-major), and adds
+// its counts to totals[digit]. Counts only: a warp's equal digits are
+// added once, by their lowest lane.
+__global__ void __launch_bounds__(kThreads)
+radix_histogram_kernel(const int32_t* __restrict__ keys, int64_t n,
+                       int32_t num_segments, int shift,
+                       int32_t* __restrict__ hist,
+                       int32_t* __restrict__ totals) {
+  __shared__ int32_t cnt[kBins];
+  const int t = threadIdx.x, lane = t & 31;
+  cnt[t] = 0;
+  __syncthreads();
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  for (int r = 0; r < kSortItems; ++r) {
+    const int64_t row = tile0 + r * kThreads + t;
+    const int digit = row < n
+        ? (sort_key(__ldg(keys + row), num_segments) >> shift) & (kBins - 1)
+        : kBins;
+    const unsigned same = __match_any_sync(kFull, digit);
+    if (digit < kBins && (same & ((1u << lane) - 1)) == 0) {
+      atomicAdd(cnt + digit, __popc(same));
+    }
+  }
+  __syncthreads();
+  hist[static_cast<int64_t>(t) * gridDim.x + blockIdx.x] = cnt[t];
+  if (cnt[t] != 0) atomicAdd(totals + t, cnt[t]);
+}
+
+// Block d turns row d of the digit-major histogram (one count a tile)
+// into each tile's first output position for digit d: the counts of the
+// lower digits (totals) plus those of digit d in the tiles before.
+__global__ void __launch_bounds__(kThreads)
+radix_scan_kernel(int32_t* __restrict__ hist,
+                  const int32_t* __restrict__ totals, int32_t blocks) {
+  __shared__ int32_t warp_sum[kWarps];
+  __shared__ int32_t base_sh;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int d = blockIdx.x;
+  if (t == 0) {
+    int32_t base = 0;
+    for (int i = 0; i < d; ++i) base += totals[i];
+    base_sh = base;
+  }
+  __syncthreads();
+  int32_t carry = base_sh;
+  int32_t* row = hist + static_cast<int64_t>(d) * blocks;
+  for (int32_t at = 0; at < blocks; at += 4 * kThreads) {
+    int32_t x[4], local = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int32_t i = at + 4 * t + j;
+      x[j] = i < blocks ? row[i] : 0;
+      local += x[j];
+    }
+    int32_t inc = local;   // inclusive scan of the threads' sums
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t y = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (lane == 31) warp_sum[warp] = inc;
+    __syncthreads();
+    int32_t before = 0, all = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? warp_sum[w] : 0;
+      all += warp_sum[w];
+    }
+    int32_t run = carry + before + inc - local;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int32_t i = at + 4 * t + j;
+      if (i < blocks) row[i] = run;
+      run += x[j];
+    }
+    carry += all;
+    __syncthreads();   // warp_sum is rewritten next round
+  }
+}
+
+// Block b moves rows [4096 b, 4096 b + 4096) to their places in the order
+// of digit (key >> shift) & 255, stably: round r takes rows 256 r + t in
+// thread t, so a row's rank among its tile's equal digits is the count of
+// those in earlier rounds (base), in earlier warps of its round (wcnt)
+// and in lower lanes of its warp (a popcount of __match_any_sync's mask).
+// An inner pass writes keys and source rows (idx_in null: the row
+// itself); the last pass (ids_out set) writes the ids, -1 for key S, and
+// gathers the `columns` value columns into vals_out.
+__global__ void __launch_bounds__(kThreads)
+radix_scatter_kernel(const int32_t* __restrict__ keys_in,
+                     const int32_t* __restrict__ idx_in, int64_t n,
+                     int32_t num_segments, int shift,
+                     const int32_t* __restrict__ scanned,
+                     int32_t* __restrict__ keys_out,
+                     int32_t* __restrict__ idx_out,
+                     int32_t* __restrict__ ids_out,
+                     const float* __restrict__ vals, int64_t ld_in,
+                     int32_t columns, float* __restrict__ vals_out,
+                     int64_t ld_out) {
+  __shared__ int32_t base[kBins];
+  __shared__ int32_t wcnt[kWarps][kBins];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  base[t] = scanned[static_cast<int64_t>(t) * gridDim.x + blockIdx.x];
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  for (int r = 0; r < kSortItems; ++r) {
+    // Thread t alone reads column t of wcnt after the round, so it may
+    // clear it now without a barrier.
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) wcnt[w][t] = 0;
+    __syncthreads();
+    const int64_t row = tile0 + r * kThreads + t;
+    const bool valid = row < n;
+    const int32_t key =
+        valid ? sort_key(__ldg(keys_in + row), num_segments) : 0;
+    const int digit = valid ? (key >> shift) & (kBins - 1) : kBins;
+    const unsigned same = __match_any_sync(kFull, digit);
+    const int below = __popc(same & ((1u << lane) - 1));
+    if (valid && below == 0) wcnt[warp][digit] = __popc(same);
+    __syncthreads();
+    if (valid) {
+      int32_t pos = base[digit] + below;
+      for (int w = 0; w < warp; ++w) pos += wcnt[w][digit];
+      const int32_t src = idx_in != nullptr ? __ldg(idx_in + row)
+                                            : static_cast<int32_t>(row);
+      if (ids_out == nullptr) {
+        keys_out[pos] = key;
+        idx_out[pos] = src;
+      } else {
+        ids_out[pos] = key == num_segments ? -1 : key;
+        for (int32_t c = 0; c < columns; ++c) {
+          vals_out[c * ld_out + pos] = __ldg(vals + c * ld_in + src);
+        }
+      }
+    }
+    __syncthreads();   // every position read before base moves on
+    int32_t added = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) added += wcnt[w][t];
+    base[t] += added;
+  }
 }
 
 }  // namespace
@@ -297,8 +478,9 @@ extern "C" int repro_segment_reduce_fold(
 }
 
 // The (S + 1,) int32 row offsets of sorted segment ids (n,) into `out`,
-// and an error word at out[S + 1] that the caller zeroes first. The
-// caller guarantees n < 2^31 - 1.
+// and two error words that the caller zeroes first: out[S + 1] (an id
+// out of [-1, S)) and out[S + 2] (ids out of order). The caller
+// guarantees n < 2^31 - 1.
 extern "C" int repro_segment_offsets(const void* ids, int64_t n,
                                      int32_t num_segments, void* out,
                                      int32_t device, void* stream) {
@@ -311,4 +493,49 @@ extern "C" int repro_segment_offsets(const void* ids, int64_t n,
       static_cast<const int32_t*>(ids), n, num_segments, o,
       o + num_segments + 1);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Sorts ids (n,) stably by key (-1 read as S) in `passes` radix passes
+// (8 bits each; the caller gives ceil(bit_length(S) / 8)), writing the
+// sorted ids to ids_out and, for `columns` > 0, the value columns vals
+// (row stride ld_in) gathered into the same order to vals_out (row
+// stride ld_out). Scratch, from the caller: keys and idx of 2 n int32
+// each, hist of 256 * ceil(n / 4096) int32, and totals of 256 * passes
+// int32, zeroed. The caller guarantees 0 < n < 2^31 - 1 and passes > 0.
+extern "C" int repro_segment_sort(const void* ids, int64_t n,
+                                  int32_t num_segments, int32_t passes,
+                                  const void* vals, int64_t ld_in,
+                                  int32_t columns, void* vals_out,
+                                  int64_t ld_out, void* ids_out, void* keys,
+                                  void* idx, void* hist, void* totals,
+                                  int32_t device, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((n + kTile - 1) / kTile);
+  int32_t* key_buf = static_cast<int32_t*>(keys);
+  int32_t* idx_buf = static_cast<int32_t*>(idx);
+  int32_t* h = static_cast<int32_t*>(hist);
+  const int32_t* in_keys = static_cast<const int32_t*>(ids);
+  const int32_t* in_idx = nullptr;
+  for (int32_t p = 0; p < passes; ++p) {
+    const bool last = p == passes - 1;
+    int32_t* tot = static_cast<int32_t*>(totals) + kBins * p;
+    int32_t* out_keys = key_buf + (p % 2) * n;
+    int32_t* out_idx = idx_buf + (p % 2) * n;
+    radix_histogram_kernel<<<blocks, kThreads, 0, st>>>(
+        in_keys, n, num_segments, 8 * p, h, tot);
+    radix_scan_kernel<<<kBins, kThreads, 0, st>>>(
+        h, tot, static_cast<int32_t>(blocks));
+    radix_scatter_kernel<<<blocks, kThreads, 0, st>>>(
+        in_keys, in_idx, n, num_segments, 8 * p, h, out_keys, out_idx,
+        last ? static_cast<int32_t*>(ids_out) : nullptr,
+        static_cast<const float*>(vals), ld_in, columns,
+        static_cast<float*>(vals_out), ld_out);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    in_keys = out_keys;
+    in_idx = out_idx;
+  }
+  return 0;
 }

@@ -5,8 +5,9 @@ tensors and runs its plain PyTorch version on CPU tensors:
 - hash_join:      bucketed sorted probe and range probe (equi-join), with
   the bucket table made once per build side (``probe_table``)
 - segment_reduce: deterministic pairwise segmented sum/count/min/max
-  over segments given by host row offsets or sorted ids, two passes of
-  its tree in one launch
+  over segments given by host row offsets or by ids in any order (ids
+  out of order radix-sorted on the card first), two passes of its tree
+  in one launch
 - flash_attention: causal / sliding-window GQA online-softmax attention,
   in the model's (B, S, H, D) layout: bf16 at D = 64, 128, 256 on the
   tensor cores, float32 and other head dims on the CUDA cores

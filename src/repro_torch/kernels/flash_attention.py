@@ -12,7 +12,9 @@ kernels, both reading the tensors through their strides, chosen by
 128 or 256 takes the tensor-core kernel (``csrc/flash_attention_wgmma.cu``,
 ``"tc"``: ``wgmma`` products, TMA-fed K/V tiles); float32 and every other
 head dim (StableLM-3B's 80 among them) take the CUDA-core kernel
-(``csrc/flash_attention.cu``, ``"fma"``: float32 FMAs). Every launch
+(``csrc/flash_attention.cu``, ``"fma"``: float32 FMAs; any head dim up to
+``MAX_HEAD_DIM``, whose tiles fill most of a block's 227 KB of shared
+memory, rows read as vectors where D is a multiple of 4). Every launch
 counts in ``FLASH_ATTENTION_LAUNCHES``, the tensor-core ones also in
 ``FLASH_ATTENTION_TC_LAUNCHES``. On a CPU tensor it runs the plain
 version, which is the oracle ``ref.flash_attention_ref`` itself: one full
@@ -31,7 +33,7 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 __all__ = ["flash_attention", "flash_attention_plain",
            "FLASH_ATTENTION_LAUNCHES", "FLASH_ATTENTION_TC_LAUNCHES"]
 
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 512   # the CUDA-core kernel's largest head dim (kMaxD)
 # Head dims of the tensor-core kernel (one template each).
 TC_HEAD_DIMS = (64, 128, 256)
 
@@ -91,19 +93,21 @@ def _flash_cuda(q, k, v, causal: bool, window: int):
     global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_TC_LAUNCHES
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if d % 4 or d > MAX_HEAD_DIM:
-        raise ValueError(f"the flash kernel takes a head dim that is a "
-                         f"multiple of 4 up to {MAX_HEAD_DIM}, not {d}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernel takes head dims up to "
+                         f"{MAX_HEAD_DIM} (a block's shared memory), not {d}")
     route = _route(q.dtype, d)
-    # The CUDA-core kernel reads rows as 4-element vectors; TMA needs
-    # 16-byte strides (8 bf16).
-    align = 8 if route == "tc" else 4
+    # TMA needs 16-byte strides (8 bf16); the CUDA-core kernel reads rows
+    # as 4-element vectors where D is a multiple of 4, else one element
+    # at a time, which needs no alignment.
+    align = 8 if route == "tc" else 4 if d % 4 == 0 else 1
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = []
     for t in (q, k, v, out):
         if t.stride(3) != 1:
             raise ValueError("flash_attention needs a contiguous last dim")
-        if t.data_ptr() % 16 or any(s % align for s in t.stride()[:3]):
+        if align > 1 and (t.data_ptr() % 16
+                          or any(s % align for s in t.stride()[:3])):
             raise ValueError("flash_attention needs 16-byte aligned rows")
         strides += [t.stride(0), t.stride(1), t.stride(2)]
     if sq == 0 or b == 0:

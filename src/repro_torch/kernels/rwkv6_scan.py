@@ -13,9 +13,11 @@ kernels, both reading the inputs through their strides, chosen by
 shape) takes the chunk-parallel tensor-core kernel
 (``csrc/rwkv6_scan_tc.cu``, ``"tc"``: 64-step chunks, decays as products
 of per-step decays, operands split hi + lo, in bf16 parts for bf16 inputs
-and TF32 parts for float32); other K, V up to 64
-take the kernel that steps the recurrence one token at a time
-(``csrc/rwkv6_scan.cu``, ``"seq"``). Every launch counts in
+and TF32 parts for float32); other K, V take the kernel that steps the
+recurrence one token at a time (``csrc/rwkv6_scan.cu``, ``"seq"``: V
+tiled over the grid, so any V; K up to ``SEQ_MAX_K``, a thread's K / 4
+state rows in registers and a chunk's K-wide rows of r, k and w in shared
+memory; ``card_limit`` says what the card refuses). Every launch counts in
 ``RWKV6_SCAN_LAUNCHES``, the tensor-core ones also in
 ``RWKV6_SCAN_TC_LAUNCHES``. On a CPU tensor it runs the plain version,
 the vectorised chunked oracle ``ref.rwkv6_chunked_ref`` with its exact
@@ -31,9 +33,11 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.ref import rwkv6_chunked_ref as rwkv6_scan_plain
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_plain", "RWKV6_SCAN_LAUNCHES",
-           "RWKV6_SCAN_TC_LAUNCHES", "MAX_HEAD_DIM"]
+           "RWKV6_SCAN_TC_LAUNCHES", "SEQ_MAX_K", "card_limit"]
 
-MAX_HEAD_DIM = 64
+SEQ_MAX_K = 256      # the seq kernel's largest K (its kMaxK)
+SEQ_TILE_V = 64      # state columns a block of the seq kernel (kTileV)
+_MAX_GRID_Y = 65535  # CUDA's limit on a grid's second dimension
 TC_HEAD_DIM = 64     # the tensor-core kernel's K and V
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,6 +53,21 @@ def _route(dtype, k: int, v: int) -> str:
     (chunk-parallel on the tensor cores, at both dtypes) at K = V = 64,
     else ``"seq"`` (one step at a time on the CUDA cores)."""
     return "tc" if k == v == TC_HEAD_DIM else "seq"
+
+
+def card_limit(k: int, v: int) -> str | None:
+    """Why the card refuses head dims ``k``, ``v``, or None if it takes
+    them: the seq kernel holds K / 4 state rows a thread in registers
+    and a chunk's K-wide rows of r, k and w in one block's shared memory,
+    so K is at most ``SEQ_MAX_K``; V is tiled over the grid's second
+    dimension, up to its 65,535 tiles of ``SEQ_TILE_V`` columns."""
+    if k > SEQ_MAX_K:
+        return (f"the rwkv6 kernel takes K up to {SEQ_MAX_K} (a block's "
+                f"registers and shared memory), not {k}")
+    if -(-v // SEQ_TILE_V) > _MAX_GRID_Y:
+        return (f"the rwkv6 kernel takes V up to {_MAX_GRID_Y * SEQ_TILE_V} "
+                f"(the grid's second dimension), not {v}")
+    return None
 
 
 def _check(r, k, v, log_w, u, s0):
@@ -108,15 +127,15 @@ def _scan_cuda(r, k, v, log_w, u, s0):
     global RWKV6_SCAN_LAUNCHES, RWKV6_SCAN_TC_LAUNCHES
     b, s, h, kd = r.shape
     vd = v.shape[3]
-    if not (0 < kd <= MAX_HEAD_DIM and 0 < vd <= MAX_HEAD_DIM):
-        raise ValueError(f"the rwkv6 kernel takes K and V up to "
-                         f"{MAX_HEAD_DIM}, not {kd} and {vd}")
+    limit = card_limit(kd, vd)
+    if limit is not None:
+        raise ValueError(limit)
     route = _route(r.dtype, kd, vd)
     u, s0 = u.contiguous(), s0.contiguous()
     o = torch.empty((b, s, h, vd), dtype=r.dtype, device=r.device)
     s_final = torch.empty_like(s0)
-    if b * h == 0:
-        return o, s_final
+    if b * h * kd * vd == 0:      # nothing to launch; an empty sum is 0
+        return o.zero_(), s_final
     ins = (r, k, v, log_w)
     if any(t.stride(3) != 1 for t in ins):
         raise ValueError("rwkv6_scan needs a contiguous last dim")

@@ -1,9 +1,12 @@
-"""Deterministic segmented reduction over sorted, contiguous segments.
+"""Deterministic segmented reduction by segment ids in any order.
 
 Backs the query engine's ``hash_agg`` in the torch backend: the compiler
 lexsorts the group keys, so each group is one contiguous run of rows,
-given by its row offsets; as ids, each group's id is non-decreasing
-along the rows (``-1`` may only pad the tail).
+given by its row offsets. Given ids instead, the rows may come in any
+order, and rows whose id is ``-1`` are ignored, as in the reference's
+one-hot kernel; ids that are non-decreasing (``-1`` only padding the
+tail) give their offsets directly, any others are first sorted stably by
+id, which keeps each segment's rows in their original order.
 
 The reduction is a fixed pairwise tree, the same on both paths: each
 segment splits into chunks of ``CHUNK`` rows, each chunk folds with a
@@ -13,8 +16,10 @@ partials fold again the same way until one value per segment is left.
 A float32 sum over ``k`` rows so loses ``O(log2 k * eps)`` relative
 precision instead of a sequential sum's ``O(k * eps)`` -- what keeps
 aggregates within rtol = 1e-6 of the float64 reference backend. No float
-atomics: the association depends only on the row layout, so results are
-reproducible bit for bit. Min and max are exact in any order.
+atomics: the association depends only on the rows' order within each
+segment, so results are reproducible bit for bit, and unsorted ids give
+the bits of the same rows stably pre-sorted. Min and max are exact in
+any order.
 
 On a CUDA tensor ``segment_reduce`` launches the hand-written kernel
 (``csrc/segment_reduce.cu``), which runs two passes of the plan in one
@@ -24,7 +29,11 @@ launch's offsets reach the card in one pinned copy, and nothing waits
 for the card before the result is returned. Given ids rather than
 offsets, it first derives the offsets on the card (one launch, counted
 in ``SEGMENT_OFFSETS_LAUNCHES``, and one wait for its copy to the host).
-On a CPU tensor it runs the plain PyTorch version of the same passes,
+Ids out of order then take the sort route: a radix sort on the card that
+also gathers the values into id order (``repro_segment_sort``, counted
+in ``SEGMENT_SORT_LAUNCHES``), a second derivation from the sorted ids
+and a second wait, then the same fold. On a CPU tensor it runs the plain
+PyTorch version of the same steps (a stable ``argsort`` for the sort),
 which gives the same bits.
 """
 from __future__ import annotations
@@ -43,13 +52,17 @@ _MODES = {"sum": 0, "count": 1, "min": 2, "max": 3}
 _IDENTITY = {"sum": 0.0, "count": 0.0, "min": math.inf, "max": -math.inf}
 
 _INT32_MAX = np.iinfo(np.int32).max
-_LAYOUT_ERROR = ("segment ids must be sorted, within [0, num_segments), "
-                 "with -1 only as tail padding")
+_RANGE_ERROR = "segment ids must lie in [-1, num_segments)"
+_ORDER_ERROR = "segment ids must be sorted, with -1 only as tail padding"
+SORT_TILE = 4096      # rows a block of the radix sort takes (its kTile)
+_BINS = 256           # digits of a radix pass (8 bits)
 
 # Kernel launches: one per launch of the reduction (each runs one or two
-# passes), and one per derivation of offsets from ids on the card.
+# passes), one per derivation of offsets from ids on the card, and one per
+# radix sort of unsorted ids (three kernels a pass, in one C call).
 SEGMENT_REDUCE_LAUNCHES = 0
 SEGMENT_OFFSETS_LAUNCHES = 0
+SEGMENT_SORT_LAUNCHES = 0
 
 
 def _combine(mode: str):
@@ -60,21 +73,44 @@ def _combine(mode: str):
     return torch.add
 
 
+def _sort_keys(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """int64 sort keys of the ids: ``-1`` reads as ``num_segments``."""
+    ids = ids.to(torch.int64)
+    return torch.where(ids == -1, num_segments, ids)
+
+
 def _offsets_plain(seg_ids: torch.Tensor, num_segments: int):
-    """Plain version of the derivation kernel: ``(offsets, bad)``, the
-    ``(num_segments + 1,)`` int64 row offsets (segment ``s`` starts at
-    the first row whose id is at least ``s``, a ``-1`` counting as
-    ``num_segments``) and whether any row breaks the layout (an id out of
-    ``[-1, num_segments)``, a descending id, a -1 before a valid id)."""
+    """Plain version of the derivation kernel: ``(offsets, out_of_range,
+    out_of_order)``, the ``(num_segments + 1,)`` int64 row offsets
+    (segment ``s`` starts at the first row whose id is at least ``s``, a
+    ``-1`` counting as ``num_segments``; meaningless unless the ids are
+    in order), whether an id lies outside ``[-1, num_segments)``, and
+    whether a row is out of order (a descending id, a -1 before a valid
+    id)."""
     ids = seg_ids.to(torch.int64)
     prev = torch.cat([ids.new_full((1,), -1), ids[:-1]])
     inner = torch.arange(ids.numel(), device=ids.device) > 0
-    bad = (ids < -1) | (ids >= num_segments) \
-        | ((ids >= 0) & inner & ((prev == -1) | (ids < prev)))
-    key = torch.where(ids == -1, num_segments, ids)
+    out_of_range = (ids < -1) | (ids >= num_segments)
+    out_of_order = (ids >= 0) & inner & ((prev == -1) | (ids < prev))
+    key = _sort_keys(ids, num_segments)
     offsets = torch.searchsorted(
         key, torch.arange(num_segments + 1, device=ids.device))
-    return offsets, bad.any()
+    return offsets, bool(out_of_range.any()), bool(out_of_order.any())
+
+
+def radix_passes(num_segments: int) -> int:
+    """Radix passes of 8 bits that keys up to ``num_segments`` need."""
+    return -(-max(1, int(num_segments).bit_length()) // 8)
+
+
+def _sort_plain(vals, seg_ids, num_segments: int):
+    """Plain version of the sort route: the values stably sorted by id
+    (``-1`` last) and the sorted ids' host offsets."""
+    key = _sort_keys(seg_ids, num_segments)
+    order = torch.argsort(key, stable=True)
+    offsets = torch.searchsorted(
+        key[order], torch.arange(num_segments + 1, device=key.device))
+    return vals[:, order], offsets.cpu().numpy()
 
 
 _LIB = None
@@ -91,6 +127,9 @@ def _lib():
         lib.repro_segment_reduce_fold.restype = ctypes.c_int
         lib.repro_segment_offsets.argtypes = [p, i64, i32, p, i32, p]
         lib.repro_segment_offsets.restype = ctypes.c_int
+        lib.repro_segment_sort.argtypes = [p, i64, i32, i32, p, i64, i32,
+                                           p, i64, p, p, p, p, p, i32, p]
+        lib.repro_segment_sort.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -101,32 +140,72 @@ def _offsets_cuda(seg_ids: torch.Tensor, num_segments: int):
     if n >= _INT32_MAX:
         raise ValueError("segment_reduce rows must fit int32")
     ids = seg_ids.contiguous()
-    dev = torch.zeros(num_segments + 2, dtype=torch.int32, device=device)
+    dev = torch.zeros(num_segments + 3, dtype=torch.int32, device=device)
     rc = _lib().repro_segment_offsets(
         ids.data_ptr(), n, num_segments, dev.data_ptr(), device.index,
         torch.cuda.current_stream(device).cuda_stream)
     kbuild.check(rc, "repro_segment_offsets")
     SEGMENT_OFFSETS_LAUNCHES += 1
-    host = torch.empty(num_segments + 2, dtype=torch.int32, pin_memory=True)
+    host = torch.empty(num_segments + 3, dtype=torch.int32, pin_memory=True)
     host.copy_(dev, non_blocking=True)
     torch.cuda.current_stream(device).synchronize()
     out = host.numpy().astype(np.int64)
-    return out[:-1], bool(out[-1])
+    return out[:-2], bool(out[-2]), bool(out[-1])
+
+
+def _sort_cuda(vals, seg_ids, num_segments: int, mode: str):
+    """The sort route on the card: the ids radix-sorted and the values
+    gathered into their order (none in count mode, which reads no
+    values), then the sorted ids' offsets derived (one more wait)."""
+    global SEGMENT_SORT_LAUNCHES
+    n, device, c = seg_ids.numel(), seg_ids.device, vals.shape[0]
+    if not vals.is_contiguous():
+        raise ValueError("segment_reduce values must be contiguous")
+    passes = radix_passes(num_segments)
+    blocks = -(-n // SORT_TILE)
+    scratch = torch.empty(4 * n + _BINS * blocks, dtype=torch.int32,
+                          device=device)
+    totals = torch.zeros(_BINS * passes, dtype=torch.int32, device=device)
+    ids_sorted = torch.empty(n, dtype=torch.int32, device=device)
+    columns = 0 if mode == "count" else c
+    out = torch.empty((c, n), dtype=torch.float32, device=device) \
+        if columns else vals
+    base = scratch.data_ptr()
+    rc = _lib().repro_segment_sort(
+        seg_ids.contiguous().data_ptr(), n, num_segments, passes,
+        vals.data_ptr(), vals.stride(0), columns,
+        out.data_ptr() if columns else None, out.stride(0),
+        ids_sorted.data_ptr(), base, base + 8 * n, base + 16 * n,
+        totals.data_ptr(), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    kbuild.check(rc, "repro_segment_sort")
+    SEGMENT_SORT_LAUNCHES += 1
+    offsets, out_of_range, out_of_order = _offsets_cuda(ids_sorted,
+                                                        num_segments)
+    if out_of_range or out_of_order:
+        raise RuntimeError("repro_segment_sort left the ids unsorted")
+    return out, offsets
 
 
 def segment_offsets(seg_ids: torch.Tensor, num_segments: int) -> np.ndarray:
     """Host ``(num_segments + 1,)`` int64 row offsets of each segment, from
     sorted ids: on the card for a CUDA tensor, else the plain version.
-    Validates the layout the kernel relies on: ids non-decreasing and in
-    ``[0, num_segments)``, with ``-1`` only as tail padding."""
-    if seg_ids.device.type == "cpu":
-        offsets, bad = _offsets_plain(seg_ids, num_segments)
-        offsets, bad = offsets.numpy(), bool(bad)
-    else:
-        offsets, bad = _offsets_cuda(seg_ids, num_segments)
-    if bad:
-        raise ValueError(_LAYOUT_ERROR)
+    Validates the layout: ids non-decreasing and in ``[0, num_segments)``,
+    with ``-1`` only as tail padding."""
+    offsets, out_of_range, out_of_order = _derive(seg_ids, num_segments)
+    if out_of_range:
+        raise ValueError(_RANGE_ERROR)
+    if out_of_order:
+        raise ValueError(_ORDER_ERROR)
     return offsets
+
+
+def _derive(seg_ids: torch.Tensor, num_segments: int):
+    if seg_ids.device.type == "cpu":
+        offsets, out_of_range, out_of_order = _offsets_plain(seg_ids,
+                                                             num_segments)
+        return offsets.numpy(), out_of_range, out_of_order
+    return _offsets_cuda(seg_ids, num_segments)
 
 
 def reduction_passes(offsets: np.ndarray):
@@ -187,12 +266,17 @@ def _reduce_plain(vals, offsets, mode: str):
 
 
 def segment_reduce_plain(vals, seg_ids, num_segments: int, mode: str):
-    """Plain PyTorch version of the kernel on ``(C, n)`` values with at
-    least one valid row: same passes, same bits."""
-    offsets, bad = _offsets_plain(seg_ids, num_segments)
-    if bool(bad):
-        raise ValueError(_LAYOUT_ERROR)
-    return _reduce_plain(vals, offsets.cpu().numpy(), mode)
+    """Plain PyTorch version of the kernel on ``(C, n)`` values and ids
+    in any order: the same steps, the same bits."""
+    offsets, out_of_range, out_of_order = _offsets_plain(seg_ids,
+                                                         num_segments)
+    if out_of_range:
+        raise ValueError(_RANGE_ERROR)
+    if out_of_order:
+        vals, offsets = _sort_plain(vals, seg_ids, num_segments)
+    else:
+        offsets = offsets.cpu().numpy()
+    return _reduce_plain(vals, offsets, mode)
 
 
 def _launch_plan(offsets: np.ndarray, mode: str):
@@ -252,17 +336,18 @@ def _reduce_cuda(vals, offsets, mode: str):
 
 def segment_reduce(vals, seg_ids=None, *, num_segments=None,
                    mode: str = "sum", offsets=None):
-    """Reduce float32 ``vals`` into segments of contiguous rows, given
-    either by sorted int32 ``seg_ids`` (n,) on the values' device with
-    ``num_segments``, or by host ``offsets``, the ``(S + 1,)`` int64 row
-    offsets of the segments (``offsets[s]`` to ``offsets[s + 1]``; rows
-    from ``offsets[-1]`` on are ignored).
+    """Reduce float32 ``vals`` into segments, given either by int32
+    ``seg_ids`` (n,) on the values' device with ``num_segments``, or by
+    host ``offsets``, the ``(S + 1,)`` int64 row offsets of segments of
+    contiguous rows (``offsets[s]`` to ``offsets[s + 1]``; rows from
+    ``offsets[-1]`` on are ignored).
 
     ``vals`` is ``(n,)`` for one column or ``(C, n)`` for a stack of
-    columns reduced together (one launch for all of them). Ids are
-    non-decreasing in ``[0, num_segments)``; ``-1`` pads the tail and is
-    ignored. Returns float32 ``(S,)`` / ``(C, S)``; an empty segment holds
-    the mode's identity. ``mode``: sum | count | min | max.
+    columns reduced together (one launch for all of them). Ids lie in
+    ``[0, num_segments)``, in any order; rows whose id is ``-1`` are
+    ignored; other ids raise. Returns float32 ``(S,)`` / ``(C, S)``; an
+    empty segment holds the mode's identity. ``mode``: sum | count | min
+    | max.
     """
     if mode not in _MODES:
         raise ValueError(f"unknown reduction mode {mode!r}")
@@ -285,7 +370,13 @@ def segment_reduce(vals, seg_ids=None, *, num_segments=None,
                              f"{n} rows of vals")
         if vals.device != seg_ids.device:
             raise ValueError("vals and seg_ids lie on different devices")
-        offsets = segment_offsets(seg_ids, num_segments)
+        offsets, out_of_range, out_of_order = _derive(seg_ids, num_segments)
+        if out_of_range:
+            raise ValueError(_RANGE_ERROR)
+        if out_of_order and vals.device.type == "cpu":
+            vals, offsets = _sort_plain(vals, seg_ids, num_segments)
+        elif out_of_order:
+            vals, offsets = _sort_cuda(vals, seg_ids, num_segments, mode)
     else:
         offsets = np.asarray(offsets, dtype=np.int64)
         if offsets.ndim != 1 or len(offsets) == 0 or offsets[0] != 0 \

@@ -260,7 +260,7 @@ def test_segment_reduce_is_deterministic_and_matches_plain():
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("ids", [[0, 2, 1], [0, -1, 1], [0, 1, 5]])
+@pytest.mark.parametrize("ids", [[0, 1, 5], [-2, 0, 1]])
 def test_segment_reduce_rejects_bad_layout(ids):
     with pytest.raises(ValueError, match="segment ids"):
         tsr.segment_reduce(torch.ones(3), _t(np.asarray(ids, np.int32)),
