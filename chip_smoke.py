@@ -10,10 +10,11 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
 
 1. build  — compile the hand-written kernels under
    ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all at once); log
-   ptxas' report for the three tensor-core kernels and the count of their
-   HGMMA (``wgmma``: flash attention, the grouped matmul) or HMMA
-   (``mma.sync``: the RWKV-6 scan) instructions, which must not be 0, and
-   for the TMA-fed RG-LRU scan; no report may show spills;
+   ptxas' report for the four tensor-core kernels and the count of their
+   HGMMA (``wgmma``: flash attention at D = 64, 128, 256, the grouped
+   matmul) or HMMA (``mma.sync``: flash attention at other bf16 head
+   dims, the RWKV-6 scan) instructions, which must not be 0, and for the
+   TMA-fed RG-LRU scan; no report may show spills;
 2. load   — generate TPC-H ``lineitem`` (6,000,000 rows, one object: one
    paper worker's ~182 MiB SF1000 partition) and ``orders`` (1,500,000
    rows) into the port's object store;
@@ -54,24 +55,32 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    and 70,000 segments, two and three radix passes, with -1 scattered;
    one sort a call, bit-equal to the plain version on the current and
    on a side stream, timed beside ``index_add_``/``scatter_reduce_``);
-   each row's launches are those of phases 3, 5 and 6 and the paper
-   phase, none of which may run the sort route;
+   ``min`` and ``max`` over segments that hold -0.0 and +0.0 in both
+   orders (with NaN), through offsets, sorted ids and the sort route,
+   bit-equal to the plain version, the sign included; each row's
+   launches are those of phases 3, 5 and 6 and the paper phase, none of
+   which may run the sort route;
 8. serve  — ``ServingEngine`` answers 8 requests of 1,024-4,096 prompt
-   tokens and 32 new tokens each, in two batches of 4, with each of three
+   tokens and 32 new tokens each, in two batches of 4, with each of four
    models at full width and depth (random bf16 weights from a seeded
    ``torch.Generator``): RecurrentGemma-2B (``impl="flash"``: the flash
    attention and RG-LRU kernels launch once per ``local`` / ``rec`` layer
    and batch, every flash launch on the tensor-core route, every RG-LRU
    launch on the TMA route), RWKV-6 1.6B
    (``impl="flash"``: the RWKV-6 scan once per ``rwkv`` layer and batch, 48
-   in all, every one on the tensor-core route) and DeepSeekMoE-16B (``impl="flash_moe"``: the grouped matmul
+   in all, every one on the tensor-core route), DeepSeekMoE-16B
+   (``impl="flash_moe"``: the grouped matmul
    three times per ``moe`` layer and batch, 162 in all, every one on the
-   tensor-core route; the reference attention). No other model kernel may
-   launch. Each model's first batch's
+   tensor-core route; the reference attention) and StableLM-3B
+   (``impl="flash"``: flash attention once per ``attn`` layer and batch,
+   64 in all, every one on the mma.sync route, head dim 80). No other
+   model kernel may launch. Each model's first batch's
    prefill is then run again on the reference route (``impl="reference"``)
    and its last-token logits held against the kernel route's (for
    DeepSeekMoE the top-k expert choices of the two routes are compared
-   too); three planted faults show what RecurrentGemma's check can see;
+   too); three planted faults show what RecurrentGemma's check can see,
+   StableLM's runs again with every flash launch on the CUDA-core kernel
+   (sound) and with the causal mask dropped (a fault);
    RWKV-6's two routes are also held together with the model widened to
    float32, where two planted faults (decays rounded to bf16, log_w
    doubled) must fail the check; one prefill and one decode step are
@@ -80,7 +89,10 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    versions at the shapes its serving phase gave them, timed as in phase 7
    (flash attention, bf16 on the tensor-core route, also at InternLM2's and
    MusicGen-medium's shapes, D = 128 and 64, and in float32 on the
-   CUDA-core route, where a window edge off by one must show; the scans
+   CUDA-core route, where a window edge off by one must show; at
+   StableLM-3B's shape on the mma.sync route, also timed beside the
+   CUDA-core kernel on the same inputs, whose time it must cut to a fifth
+   or less; the scans
    also at a strong decay, where the RWKV-6 scan is held against the step
    oracle, and the RWKV-6 scan at a ragged length and at an extreme decay
    (log_w near -60 and near -1e-3 mixed in each chunk), and on its
@@ -98,7 +110,7 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    every 128 of it zeroed);
 10. train — (a) ``Trainer`` on RecurrentGemma-2B at full width and depth
    (3,549,934,080 parameters, bf16, ``impl="reference"``, ``remat=
-   "block"``, 4 microbatches of 2 x 2,048 tokens, 4 steps at the
+   "block"``, 4 microbatches of 2 x 2,048 tokens, 2 steps at the
    launcher's schedule, a checkpoint at the last step): step 1's batch
    first runs through ``forward_train`` on a float32 copy of the initial
    weights; step 1's loss must lie within 2^-7 times that run's mean
@@ -116,10 +128,10 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    tokens/s, the ``mfu`` share, peak device memory, the checkpoint's
    save and restore, one profiled step (idle share, device time by
    kernel class) and ``cost_report``. (b) One (rec, rec, local) unit at
-   full width, 512 tokens a sequence, 4 steps, checkpoints every 2,
+   full width, 512 tokens a sequence, 2 steps, a checkpoint every step,
    under ``torch.use_deterministic_algorithms(True)`` (this sub-phase
    only; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts): a run
-   preempted at step 3 and resumed from step 2 must end with a
+   preempted at step 2 and resumed from step 1 must end with a
    checkpoint byte-equal to an uninterrupted run's.
 11. distributed — 4 ranks on the one card (``launch.mesh.spawn``,
    backend gloo; the collectives' payloads through device mailboxes,
@@ -152,7 +164,8 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    (4, 1) mesh, both saved again byte-equal. (d3) DeepSeekMoE-16B served
    on the mesh at full width, its depth cut only as far as the reckoned
    peak of the 4 ranks needs to leave 10% of the card free: 4 requests of
-   1,024-4,096 tokens in one batch, 16 new tokens, identical
+   1,024-4,096 tokens in one batch, 2 new tokens (caches with room for
+   16, as the mesh serves of (d6)), identical
    completions on every rank, ``cost_report`` with 4 chips; then 2
    ``moe`` layers, 1,024-token prompts, capacity 16: the first-token
    logits within ``LOGIT_TOL`` of the one-process engine's on the same
@@ -210,8 +223,10 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
 15. domains — head dims no served model has, which the Pallas kernels
    take: flash attention at D = 6, 36 and 320 (1 x 4,096 tokens, 8 heads,
    2 KV heads; causal, D = 36 with a 1,024-key window), float32 and bf16,
-   on the CUDA-core route; the RWKV-6 scan at K = V = 128 and at K = 128,
-   V = 160 (4 x 4,096 tokens, 16 heads, bf16) on its one-step-at-a-time
+   each on its route (asserted: bf16 at D = 6 and 36 the mma.sync
+   kernel, float32 and D = 320 the CUDA-core kernel); the RWKV-6 scan at
+   K = V = 128 and at K = 128, V = 160 (4 x 4,096 tokens, 16 heads,
+   bf16) on its one-step-at-a-time
    route; each against its plain version, timed, with a row of the
    kernels line (its launches: its route's on the main paths).
 14. dryrun — (run right after the distributed phase) the compile-only
@@ -242,8 +257,9 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    the kernelized memory term, the peak a rank against the card's
    memory). No port kernel may launch in the phase.
 
-Ends with the card's name and power limit, a ``{"kernels": [...]}`` line
-and ``{"ok": true, "device": {...}}``. Any mismatch or exception exits
+Ends with each phase's seconds (``phase_split``), the card's name and
+power limit, a ``{"kernels": [...]}`` line and ``{"ok": true, "device":
+{...}}``. Any mismatch or exception exits
 non-zero without the ``ok`` line. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -306,8 +322,13 @@ SERVINGS = {
                                     "rglru_scan": ("rec", 1)}),
     "rwkv6-1.6b": ("flash", {"rwkv6_scan": ("rwkv", 1)}),
     "deepseek-moe-16b": ("flash_moe", {"gmm": ("moe", 3)}),
+    "stablelm-3b": ("flash", {"flash_attention": ("attn", 1)}),
 }
 SERVE_ARCHS = tuple(SERVINGS)     # a quick call may serve only some
+# The route every launch of a kernel in ``serve`` must take, where it is
+# not the kernel's ``TC_ROUTES`` one: StableLM-3B's head dim of 80 takes
+# flash attention's mma.sync kernel.
+SERVE_ROUTES = {"stablelm-3b": {"flash_attention": "flash_attention_mma"}}
 SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN = 4, 4096, 4128
 SERVE_MIN_PROMPT = 1024           # prompt lengths drawn in [1024, 4096]
 SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_SEED = 8, 32, 0
@@ -322,13 +343,17 @@ MUSICGEN_ATTN = ((1, 4096, 24, 64), 24)
 # (B, S, H, K, V), RWKV-6 1.6B's width in heads of 128.
 FLASH_DOMAIN_SHAPE = (1, 4096, 8, 2)
 FLASH_DOMAINS = ((6, True, 0), (36, True, 1024), (320, True, 0))
+# Flash attention's mma.sync kernel at StableLM-3B's serving shape must
+# take at most this share of the CUDA-core kernel's time on the same
+# inputs (the route it replaced for bf16 at D = 80).
+MMA_MAX_SHARE_OF_FMA = 0.2
 RWKV_DOMAINS = ((4, 4096, 16, 128, 128), (4, 4096, 16, 128, 160))
 # Largest |kernel route - reference route| last-token logit allowed, per
 # model: 2.5 times the largest difference between two sound routes of the
 # model measured on an H100 (reasons and readings in PERF.md). For an MoE
 # model the routes are held to the same expert choices.
 LOGIT_TOL = {"recurrentgemma-2b": 0.35, "rwkv6-1.6b": 2.4,
-             "deepseek-moe-16b": 1.5}
+             "deepseek-moe-16b": 1.5, "stablelm-3b": 0.26}
 # RWKV-6's routes also run with the model widened to float32, where they
 # differ by float32 rounding alone: 2.5 times the largest difference
 # between two sound float32 routes measured on an H100 (PERF.md). The
@@ -362,11 +387,11 @@ RGLRU_RAGGED = (1, 1000, 2564)
 # size (about 0.02) by several ulps a step, so the update check sees it;
 # (b) one (rec, rec, local) unit at full width for the bit-exact resume.
 TRAIN_ARCH = "recurrentgemma-2b"
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_SEED = 2048, 8, 4, 0
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_SEED = 2048, 8, 2, 0
 TRAIN_LR = 1e-3
 GRAD_COSINE = 0.99    # the step's gradients against float32's, per leaf
-RESUME_LAYERS, RESUME_SEQ, RESUME_STEPS = 3, 512, 4
-RESUME_EVERY, RESUME_PREEMPT_AT = 2, 3
+RESUME_LAYERS, RESUME_SEQ, RESUME_STEPS = 3, 512, 2
+RESUME_EVERY, RESUME_PREEMPT_AT = 1, 1
 # The distributed phase: 4 ranks on the one card, (data 2, model 2).
 DIST_WORLD, DIST_MESH, DIST_ARCH = 4, (2, 2), "deepseek-moe-16b"
 DIST_TIMEOUT = 900
@@ -395,8 +420,9 @@ DIST_CKPT_ARCH = "deepseek-moe-16b"
 # exchange, ROADMAP C.6), keyed "<arch>@fsdp".
 DIST_TRAIN_RUNS = ("deepseek-moe-16b", "recurrentgemma-2b",
                    "deepseek-moe-16b@fsdp")
-# (d3)
-DIST_SERVE_REQUESTS, DIST_SERVE_NEW = 4, 16
+# (d3) and (d6): requests, the tokens each serve generates, and the room
+# its caches keep past the prompt (the shapes of every cache and prefill).
+DIST_SERVE_REQUESTS, DIST_SERVE_NEW, DIST_CACHE_NEW = 4, 2, 16
 # (d6): tensor-parallel serving under ACT_RULES at full width and depth,
 # on the (d3) requests; a rank's matmul FLOPs of one prefill must fall by
 # at least this factor from the layout without TP (tp = 2; the parts every
@@ -426,6 +452,21 @@ DIST_COMPRESS_MAX_ELEMENTS = 100_000_000
 
 def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+class Laps:
+    """Seconds between the named points of one phase, logged together as
+    ``<phase>_split`` (where a phase's time goes)."""
+
+    def __init__(self, phase: str):
+        self.phase, self.seconds, self.t = phase, {}, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name], self.t = now - self.t, now
+
+    def log(self) -> None:
+        log(f"{self.phase}_split", seconds=self.seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -539,7 +580,8 @@ def _kernel_modules():
 
 def _route_counters():
     """Launches of a kernel's route, counted beside its kernel's own:
-    flash attention's tensor-core route (bf16 at D = 64, 128, 256), the
+    flash attention's two tensor-core routes (wgmma: bf16 at D = 64, 128,
+    256; mma.sync: bf16 at every other D up to 256), the
     grouped matmul's (bf16 with D and F multiples of 8), the RWKV-6
     scan's (K = V = 64) and the RG-LRU scan's TMA route (W * 4 a multiple
     of 16 bytes); and the segmented reduction's sorts of unsorted ids,
@@ -550,6 +592,7 @@ def _route_counters():
     from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import segment_reduce as sr
     return {"flash_attention_tc": (fa, "FLASH_ATTENTION_TC_LAUNCHES"),
+            "flash_attention_mma": (fa, "FLASH_ATTENTION_MMA_LAUNCHES"),
             "gmm_tc": (mg, "GMM_TC_LAUNCHES"),
             "rwkv6_scan_tc": (rs, "RWKV6_SCAN_TC_LAUNCHES"),
             "rglru_scan_tma": (rg, "RGLRU_SCAN_TMA_LAUNCHES"),
@@ -571,6 +614,19 @@ def launch_counts() -> dict:
 def route_counts() -> dict:
     return {k: getattr(mod, attr)
             for k, (mod, attr) in _route_counters().items()}
+
+
+def row_launches(row, launches, routes) -> int:
+    """A kernels-line row's share of one path's launches: a flash
+    attention row's are those of its source's route."""
+    if row["name"] != "flash_attention":
+        return launches[row["name"]]
+    tc, mma = routes["flash_attention_tc"], routes["flash_attention_mma"]
+    if row["source"].endswith("_wgmma.cu"):
+        return tc
+    if row["source"].endswith("_mma.cu"):
+        return mma
+    return launches["flash_attention"] - tc - mma
 
 
 def reset_launch_counts() -> None:
@@ -738,7 +794,7 @@ def run_query_serving(store, keys, wants):
                              ProfilerActivity.CUDA]) as prof:
         serve_queries(store, keys, wants, result_cache=False)
         torch.cuda.synchronize()
-    summary = device_summary(prof, walls["interleaved"])
+    summary = device_summary(prof.key_averages(), walls["interleaved"])
     summary.pop("top_device_kernels_s")
     log("query_serving_profile", mode="interleaved",
         host_wall_s=walls["interleaved"], **summary)
@@ -839,6 +895,7 @@ OWN_KERNELS = (("probe_range", "probe_range_kernel"),
                ("segment_reduce", "segment_reduce_fold"),
                ("flash_attention", "flash_attention_kernel"),
                ("flash_attention", "flash_attention_wgmma_kernel"),
+               ("flash_attention", "flash_attention_mma_kernel"),
                ("rglru_scan", "rglru_scan_tma_kernel"),
                ("rglru_scan", "rglru_scan_kernel"),
                ("rwkv6_scan", "rwkv6_scan_tc_kernel"),
@@ -854,16 +911,16 @@ def own_kernel(key: str):
     return None
 
 
-def device_summary(prof, wall_s: float) -> dict:
-    """Device kernel and copy time of a ``torch.profiler`` run, each of
-    the port's kernels' launches and own device time, and the device's
-    idle share of ``wall_s``."""
+def device_summary(events, wall_s: float) -> dict:
+    """Device kernel and copy time of a ``torch.profiler`` run (its
+    ``key_averages()``), each of the port's kernels' launches and own
+    device time, and the device's idle share of ``wall_s``."""
     from torch.autograd import DeviceType
     kernel_us = copy_us = 0.0
     kernel_n = 0
     own = {kname: [0, 0.0] for kname, _ in OWN_KERNELS}
     top = []
-    for evt in prof.key_averages():
+    for evt in events:
         # Only the device's own events: a CPU operator's self device
         # time repeats the time of the kernels it launched.
         if evt.device_type != DeviceType.CUDA:
@@ -914,7 +971,7 @@ def profile_queries(store, keys, walls):
         st = pstats.Stats(pr)
         top = sorted(st.stats.items(), key=lambda kv: kv[1][2],
                      reverse=True)[:8]
-        summary = device_summary(prof, walls[name])
+        summary = device_summary(prof.key_averages(), walls[name])
         summary.pop("top_device_kernels_s")
         log("profile", name=name, warm_wall_s=walls[name], **summary,
             host_top_self_s=[[f"{pathlib.Path(f).name}:{ln}:{fn}", v[2]]
@@ -1112,8 +1169,8 @@ def run_examples() -> tuple:
     after); the query examples' results held against the numpy backend;
     the training examples' outcomes checked; flash attention held against
     its plain version on ``serverless_serving``'s inputs. Returns the
-    launches (flash attention's: the tensor-core route's) and the
-    CUDA-core flash route's row of the kernels line."""
+    launches, the route counts and the CUDA-core flash route's row of the
+    kernels line."""
     import math
     import torch
     from repro_torch.configs.registry import ARCHS
@@ -1207,14 +1264,16 @@ def run_examples() -> tuple:
     # launch here (recorded).
     require_launches("examples", launches, ("segment_reduce",
                                             "flash_attention"))
-    fma = launches["flash_attention"] - routes["flash_attention_tc"]
-    launches["flash_attention"] -= fma
+    fma = launches["flash_attention"] - routes["flash_attention_tc"] \
+        - routes["flash_attention_mma"]
     log("examples", walls_s=walls, launches=launches,
-        flash_attention_fma_launches=fma, quickstart_losses=losses,
+        flash_attention_fma_launches=fma,
+        flash_attention_mma_launches=routes["flash_attention_mma"],
+        quickstart_losses=losses,
         quickstart_entropy_floor=floor, quickstart_moved=moved,
         elastic_phase2_steps=steps, elastic_ranks=el["ranks"],
         serving_cost=sv["cost"])
-    return launches, check_flash_examples(rec, fma)
+    return launches, routes, check_flash_examples(rec, fma)
 
 
 # ---------------------------------------------------------------------------
@@ -1223,15 +1282,20 @@ def run_examples() -> tuple:
 
 def time_spread(fn, batches: int = 5) -> list[float]:
     """Milliseconds per call of ``fn`` in each of ``batches`` CUDA-event
-    timings, sorted. After warm-up; a batch holds up to 20 calls, fewer
-    for a function that takes longer than half a millisecond."""
+    timings, sorted. After warm-up (three calls, the last timed to size
+    the first batch); a batch holds up to 20 calls, fewer for a function
+    that takes longer than half a millisecond."""
     import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    iters, per = 20, []
+    for _ in range(2):
+        fn()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    iters = max(1, min(20, int(10.0 / max(start.elapsed_time(end), 1e-3))))
+    per = []
     for _ in range(batches):
         start.record()
         for _ in range(iters):
@@ -1526,7 +1590,76 @@ def check_segment_reduce(recorded, launches):
                 segments=S, mode=m, **one(q1, offs, m))
     del q1
     check_segment_unsorted(vals, offsets, mode)
+    check_segment_zeros()
     return [{k: row[k] for k in ROW_KEYS}]
+
+
+def check_segment_zeros() -> None:
+    """Segments holding -0.0 and +0.0 in both orders, with NaN and with
+    zeros of one sign, some longer than a chunk of the fold (the inputs of
+    ``tests/test_torch_segment_zeros.py``, two columns, the second
+    negated): ``min`` and ``max`` through host offsets, sorted ids (-1
+    padding the tail) and ids in any order (the sort route: the rows
+    permuted, a tenth of the ids -1), each bit-equal to the plain version,
+    the sign bit included (a NaN as NaN: its payload is no part of the
+    contract). The reference orders -0.0 below +0.0."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import segment_reduce as sr
+    nan = np.float32(np.nan)
+    small = [[-0.0, 0.0], [0.0, -0.0], [-0.0, -0.0], [0.0, 0.0],
+             [nan, -0.0, 0.0], [0.0, nan, -0.0], [-0.0, 0.0, nan],
+             [0.0, 1.0, -0.0], [-1.0, 0.0, -0.0], [0.0, -0.0, 0.0, -0.0, 0.0]]
+    rng = np.random.default_rng(1)
+    lengths = [len(x) for x in small] + [3 * sr.CHUNK + 5, sr.CHUNK,
+                                         2 * sr.CHUNK - 1, 700]
+    col = [np.asarray(x, np.float32) for x in small]
+    for i, n in enumerate(lengths[len(small):]):
+        neg = rng.random(n) < (0.0 if i == 3 else 0.5)
+        x = np.where(neg, np.float32(-0.0), np.float32(0.0))
+        if i == 2:
+            x[rng.integers(n)] = nan
+        col.append(x.astype(np.float32))
+    col = np.concatenate(col)
+    vals = np.stack([col, -col])
+    segs = len(lengths)
+    ids = np.repeat(np.arange(segs, dtype=np.int32), lengths)
+    offsets = np.searchsorted(ids, np.arange(segs + 1)).astype(np.int64)
+    padded = np.concatenate([vals, np.full((2, 3), -5.0, np.float32)], 1)
+    padded_ids = np.concatenate([ids, np.full(3, -1, np.int32)])
+    perm = np.random.default_rng(7).permutation(ids.size)
+    shuffled_ids = ids[perm].copy()
+    shuffled_ids[np.random.default_rng(8).random(ids.size) < 0.1] = -1
+    cases = {"offsets": (vals, None), "sorted_ids": (padded, padded_ids),
+             "unsorted_ids": (vals[:, perm], shuffled_ids)}
+
+    def bits(t):
+        t = t.clone()
+        t[torch.isnan(t)] = float("nan")
+        return t.view(torch.int32)
+
+    out = {}
+    for case, (vh, ih) in cases.items():
+        v = torch.from_numpy(np.ascontiguousarray(vh)).to(DEVICE)
+        i = None if ih is None else torch.from_numpy(ih).to(DEVICE)
+        for m in ("min", "max"):
+            sorts0 = sr.SEGMENT_SORT_LAUNCHES
+            got = sr.segment_reduce(v, offsets=offsets, mode=m) if i is None \
+                else sr.segment_reduce(v, i, num_segments=segs, mode=m)
+            sorts = sr.SEGMENT_SORT_LAUNCHES - sorts0
+            want = sr._reduce_plain(v, offsets, m) if i is None \
+                else sr.segment_reduce_plain(v, i, segs, m)
+            torch.cuda.synchronize()
+            equal = torch.equal(bits(got), bits(want))
+            neg = int(torch.signbit(got).sum())
+            out[f"{case}_{m}"] = {"bit_equal": equal, "sorts": sorts,
+                                  "sign_bits_set": neg}
+            if not equal or sorts != int(case == "unsorted_ids"):
+                raise AssertionError(f"segment_reduce mixed zeros {case} "
+                                     f"{m}: bit-equal {equal}, {sorts} "
+                                     "sorts")
+    log("kernel_zeros", name="segment_reduce", segments=segs,
+        rows=int(ids.size), **out)
 
 
 def check_segment_unsorted(vals, offsets, mode) -> None:
@@ -1736,10 +1869,11 @@ def run_serving(arch: str):
         raise AssertionError(f"{arch}: other kernels launched in serve: "
                              f"{launches}")
     for k in want:
-        if k in TC_ROUTES and routes[TC_ROUTES[k]] != launches[k]:
-            raise AssertionError(f"{arch}: {routes[TC_ROUTES[k]]} of "
+        route = SERVE_ROUTES.get(arch, {}).get(k, TC_ROUTES.get(k))
+        if route is not None and routes[route] != launches[k]:
+            raise AssertionError(f"{arch}: {routes[route]} of "
                                  f"{launches[k]} {k} launches took the "
-                                 f"route {TC_ROUTES[k]}")
+                                 f"route {route}")
     first = np.asarray([r.completion[0] for r in done[:SERVE_BATCH]])
     return eng, reqs, {**launches, **routes}, first
 
@@ -1959,13 +2093,16 @@ def log_controls(eng, toks, kern_logits, ref_logits, experts=None,
     another sound route (names starting ``sound_``, which only round
     differently), each held against both routes; returns the readings.
     RecurrentGemma-2B: the window edge one key wider, the window dropped,
-    the RG-LRU decays rounded to bf16. RWKV-6: the reference route with
+    the RG-LRU decays rounded to bf16. StableLM-3B: every flash launch on
+    the CUDA-core kernel (sound), and the causal mask dropped. RWKV-6: the
+    reference route with
     32-step chunks (sound), the scan's decays rounded to bf16, log_w
     doubled. DeepSeekMoE: the flash-attention route (sound), and expert
     0's output of every grouped matmul zeroed, each also with the kernel
     route's expert choices (``experts``) replayed."""
     import dataclasses
     import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as rs
@@ -1981,6 +2118,12 @@ def log_controls(eng, toks, kern_logits, ref_logits, experts=None,
         with replaced(rg, "rglru_scan", lambda f: lambda la, b, h0: f(
                 bf16(la), b, h0)):
             out["bf16_decays"] = prefill()
+    elif cfg.name == "stablelm-3b":
+        with replaced(fa, "_route", lambda f: lambda dtype, d: "fma"):
+            out["sound_cuda_core_route"] = prefill()
+        with replaced(fa, "flash_attention", lambda f: lambda q, k, v, **kw:
+                      f(q, k, v, causal=False, window=kw.get("window", 0))):
+            out["causal_dropped"] = prefill()
     elif cfg.name == "rwkv6-1.6b":
         out["sound_reference_chunk_32"] = prefill(dataclasses.replace(
             cfg, recurrent=dataclasses.replace(cfg.recurrent, chunk=32)),
@@ -2026,7 +2169,7 @@ def profile_serving(eng, toks):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     log("serve_profile", arch=eng.cfg.name, step="prefill", wall_s=wall,
-        **device_summary(prof, wall))
+        **device_summary(prof.key_averages(), wall))
     nxt = logits.argmax(-1).to(torch.int32)[:, None]
     eng.decode(eng.model, nxt, caches, SERVE_PROMPT)       # warm
     torch.cuda.synchronize()
@@ -2036,7 +2179,7 @@ def profile_serving(eng, toks):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     log("serve_profile", arch=eng.cfg.name, step="decode", wall_s=wall,
-        **device_summary(prof, wall))
+        **device_summary(prof.key_averages(), wall))
 
 
 def within(got, want, tol) -> float:
@@ -2161,6 +2304,77 @@ def check_flash_f32(q, k, v, got, causal, window) -> dict:
     if not (f32_err <= F32_ATTN_TOL and bf16_excess <= F32_ATTN_TOL):
         raise AssertionError(f"flash attention against float32: {out}")
     return out
+
+
+def check_flash_mma(recorded, launches):
+    """Flash attention at the shape StableLM-3B's serve phase gave it (q,
+    k, v (4, 4096, 32, 80) bf16, causal): the mma.sync kernel against its
+    plain version within BF16_TOL and, on the inputs widened to float32,
+    against the float32 result (``check_flash_f32``); timed beside its
+    bound, the plain version, ``scaled_dot_product_attention`` and the
+    CUDA-core kernel on the same inputs (called directly: the route bf16
+    at D = 80 took before), whose time it must cut to
+    ``MMA_MAX_SHARE_OF_FMA`` or less."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    (q, k, v), kw = recorded["flash_attention"]
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if fa._route(q.dtype, d) != "mma":
+        raise AssertionError(f"flash attention {tuple(q.shape)} {q.dtype}: "
+                             "not the mma.sync route")
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                      window=window)
+    fma = lambda: fa._flash_cuda(q, k, v, causal, window,  # noqa: E731
+                                 route="fma")
+    plain = lambda: fa.flash_attention_plain(  # noqa: E731
+        q, k, v, causal=causal, window=window)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = {"is_causal": causal}
+    if window:
+        qp = torch.arange(sq, device=DEVICE)[:, None]
+        kp = torch.arange(skv, device=DEVICE)[None, :]
+        mask = {"attn_mask": (kp <= qp) & (kp > qp - window)}
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, enable_gqa=True, **mask)
+    mma0 = fa.FLASH_ATTENTION_MMA_LAUNCHES
+    got = kern()
+    if fa.FLASH_ATTENTION_MMA_LAUNCHES != mma0 + 1:
+        raise AssertionError("flash attention: bf16 at D = 80 did not take "
+                             "the mma.sync route")
+    want = plain()
+    torch.cuda.synchronize()
+    err = within(got, want, BF16_TOL)
+    fma_err = within(fma(), want, BF16_TOL)
+    tight = check_flash_f32(q, k, v, got, causal, window)
+    pairs = band_pairs(sq, skv, causal, window)
+    flops = 4.0 * b * h * d * pairs
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) \
+        * q.element_size()
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, bound_ms(nbytes)
+    fma_per = time_spread(fma)
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_mma.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:22",
+           "launches": launches["flash_attention_mma"], "max_abs_err": err,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           **kernel_times(kern, plain, lib)}
+    fma_ms = fma_per[len(fma_per) // 2]
+    log("kernel", **row, case="stablelm_serve", shape=[b, sq, h, d],
+        kv_heads=k.shape[2], causal=causal, window=window, band_pairs=pairs,
+        flops=flops, bytes=nbytes, kernel_route="mma",
+        tflops_per_s=flops / row["ms"] / 1e9, cuda_core_ms=fma_ms,
+        cuda_core_ms_min=fma_per[0], cuda_core_ms_max=fma_per[-1],
+        cuda_core_max_abs_err=fma_err, share_of_cuda_core=row["ms"] / fma_ms,
+        max_share=MMA_MAX_SHARE_OF_FMA, **tight)
+    if row["ms"] > MMA_MAX_SHARE_OF_FMA * fma_ms:
+        raise AssertionError(f"flash attention's mma.sync route takes "
+                             f"{row['ms']} ms against the CUDA-core "
+                             f"kernel's {fma_ms} ms")
+    return [{key: row[key] for key in ROW_KEYS}]
 
 
 def rglru_truth(log_a, b_in, h0):
@@ -2491,17 +2705,20 @@ def check_rwkv6(recorded, launches):
     return [{key: row[key] for key in ROW_KEYS}]
 
 
-def check_domains(fma_launches: int) -> list:
-    """Phase ``domains``: head dims that no served model has and the
-    Pallas kernels take. Flash attention at ``FLASH_DOMAINS`` (D = 6, 36
-    and 320) in float32 and bf16, every call on the CUDA-core route,
-    against its plain version (F32_ATTN_TOL, BF16_TOL); the RWKV-6 scan
-    at ``RWKV_DOMAINS`` (K = V = 128, and V = 160), bf16 r, k, v, on its
+def check_domains(fma_launches: int, mma_launches: int) -> list:
+    """Phase ``domains``: head dims that no served model but StableLM-3B
+    has and the Pallas kernels take. Flash attention at ``FLASH_DOMAINS``
+    (D = 6, 36 and 320) in float32 and bf16, each call on the route
+    ``_route`` gives it (asserted: float32 and bf16 at D = 320 the
+    CUDA-core kernel, bf16 at D = 6 and 36 the mma.sync kernel), against
+    its plain version (F32_ATTN_TOL, BF16_TOL); the RWKV-6 scan at
+    ``RWKV_DOMAINS`` (K = V = 128, and V = 160), bf16 r, k, v, on its
     one-step-at-a-time route, against its plain version (the outputs
     within BF16_TOL and the final state within RWKV_TOL of the size of
     its terms). Each is timed and gets a row of the kernels line; a
-    row's launches are its route's on the main paths (the examples'
-    CUDA-core flash launches; none of the seq route)."""
+    row's launches are its route's on the main paths (``fma_launches``
+    of the CUDA-core flash route, the examples'; ``mma_launches`` of the
+    mma.sync route, StableLM-3B's; none of the seq route)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -2509,8 +2726,18 @@ def check_domains(fma_launches: int) -> list:
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     rows = []
     b, s, h, hkv = FLASH_DOMAIN_SHAPE
+    sources = {"fma": ("src/repro_torch/csrc/flash_attention.cu",
+                       fma_launches),
+               "mma": ("src/repro_torch/csrc/flash_attention_mma.cu",
+                       mma_launches)}
     for d, causal, window in FLASH_DOMAINS:
         for dtype in (torch.float32, torch.bfloat16):
+            route = "mma" if dtype == torch.bfloat16 and \
+                d <= fa.MMA_MAX_HEAD_DIM else "fma"
+            if fa._route(dtype, d) != route:
+                raise AssertionError(f"flash attention D = {d} {dtype}: "
+                                     f"route {fa._route(dtype, d)}, not "
+                                     f"{route}")
             opts = dict(dtype=dtype, device=DEVICE, generator=gen)
             q = torch.randn((b, s, h, d), **opts)
             k, v = (torch.randn((b, s, hkv, d), **opts) for _ in range(2))
@@ -2524,13 +2751,16 @@ def check_domains(fma_launches: int) -> list:
             band = (kp <= qp) & (kp > qp - window) if window else kp <= qp
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=band, enable_gqa=True)
-            n0, tc0 = fa.FLASH_ATTENTION_LAUNCHES, \
-                fa.FLASH_ATTENTION_TC_LAUNCHES
+            n0, tc0, mma0 = fa.FLASH_ATTENTION_LAUNCHES, \
+                fa.FLASH_ATTENTION_TC_LAUNCHES, \
+                fa.FLASH_ATTENTION_MMA_LAUNCHES
             got = kern()
             if fa.FLASH_ATTENTION_LAUNCHES != n0 + 1 or \
-                    fa.FLASH_ATTENTION_TC_LAUNCHES != tc0:
+                    fa.FLASH_ATTENTION_TC_LAUNCHES != tc0 or \
+                    fa.FLASH_ATTENTION_MMA_LAUNCHES != mma0 + (
+                        route == "mma"):
                 raise AssertionError(f"flash attention D = {d} {dtype}: "
-                                     "not one launch of the CUDA-core route")
+                                     f"not one launch of the {route} route")
             want = plain()
             torch.cuda.synchronize()
             f32 = dtype == torch.float32
@@ -2542,16 +2772,17 @@ def check_domains(fma_launches: int) -> list:
                 * q.element_size()
             rate = F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
             t_ops, t_bytes = flops / rate * 1e3, bound_ms(nbytes)
+            source, launches = sources[route]
             row = {"name": "flash_attention", "route": "cuda",
-                   "source": "src/repro_torch/csrc/flash_attention.cu",
+                   "source": source,
                    "replaces": "src/repro/kernels/flash_attention.py:22",
-                   "launches": fma_launches, "max_abs_err": err,
+                   "launches": launches, "max_abs_err": err,
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes
                    else "bytes", **kernel_times(kern, plain, lib)}
             log("kernel", **row, case=f"head_dim_{d}", shape=[b, s, h, d],
                 kv_heads=hkv, dtype=str(dtype), causal=causal,
-                window=window, kernel_route=fa._route(dtype, d), tol=tol,
+                window=window, kernel_route=route, tol=tol,
                 tflops_per_s=flops / row["ms"] / 1e9)
             rows.append({key: row[key] for key in ROW_KEYS})
             del q, k, v, qt, kt, vt, band, got, want
@@ -2981,13 +3212,14 @@ def profile_train_step(step_fn, model, opt_state, batch, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_class: dict = {}
-    for evt in prof.key_averages():
+    events = prof.key_averages()      # one pass over the step's events
+    for evt in events:
         if evt.device_type != DeviceType.CUDA:
             continue
         cls = by_class.setdefault(kernel_class(evt.key), [0, 0.0])
         cls[0] += evt.count
         cls[1] += evt.self_device_time_total / 1e6
-    summary = device_summary(prof, wall)
+    summary = device_summary(events, wall)
     log("train_profile", card=card, wall_s=wall,
         loss=float(metrics["loss"]), **summary,
         device_s_by_class=dict(sorted(
@@ -3036,8 +3268,10 @@ def run_train(card: str) -> None:
         device=DEVICE)
     leaves = train_leaves(tfm.layer_kinds(cfg))
     tokens = TRAIN_SEQ * TRAIN_BATCH
+    laps = Laps("train")
     t0 = time.perf_counter()
     ref = float32_step_reference(trainer, cfg, leaves)
+    laps("float32_reference")
     log("train_float32_reference", card=card, arch=cfg.name,
         seconds=time.perf_counter() - t0, parameters=ref["parameters"],
         loss=ref["loss"], microbatch_losses=ref["losses"],
@@ -3100,6 +3334,7 @@ def run_train(card: str) -> None:
             out = {"status": "done", "metrics": trainer.metrics_log,
                    "cost": trainer.cost_report(time.perf_counter() - t0)}
         wall = time.perf_counter() - t0
+    laps("steps_and_save")
     peak = torch.cuda.max_memory_allocated()
     launches = launch_counts()
     if out["status"] != "done" or any(launches.values()):
@@ -3111,8 +3346,8 @@ def run_train(card: str) -> None:
     flops = train_flops(cfg, ref["parameters"], tokens, TRAIN_SEQ)
     log("train_steps", card=card, arch=cfg.name, steps=TRAIN_STEPS,
         tokens_per_step=tokens, microbatches=cfg.microbatches,
-        step_s=steps.seconds, step_s_median_2_to_4=median,
-        step_s_min_2_to_4=later[0], step_s_max_2_to_4=later[-1],
+        step_s=steps.seconds, step_s_median_after_first=median,
+        step_s_min_after_first=later[0], step_s_max_after_first=later[-1],
         tokens_per_s=tokens / median, losses=losses,
         grad_norms=[m["grad_norm"] for m in out["metrics"]], wall_s=wall)
     log("train_mfu", card=card, model_flops_per_step=flops,
@@ -3166,6 +3401,7 @@ def run_train(card: str) -> None:
     if failed:
         raise AssertionError("train: " + "; ".join(failed))
     del records, first, ref
+    laps("checks")
 
     # The checkpoint, restored onto the card, and one more step profiled.
     if use_trainer:
@@ -3179,6 +3415,7 @@ def run_train(card: str) -> None:
                                                device=DEVICE)
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
+        laps("init_and_restore")
         log("train_checkpoint", card=card, step=step, save_s=save_s,
             saved_bytes=store.stats.write_bytes, stored_bytes=
             store.total_bytes(), objects=len(store.list("ckpt")),
@@ -3187,9 +3424,12 @@ def run_train(card: str) -> None:
         batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
                  trainer.pipeline.batch_at(TRAIN_STEPS).items()}
         profile_train_step(steps.fn, model, opt_state, batch, card)
+        laps("profile")
         del model, opt_state, batch
     del trainer, store
     torch.cuda.empty_cache()
+    laps("free")
+    laps.log()
 
 
 def run_resume(card: str) -> None:
@@ -3199,6 +3439,8 @@ def run_resume(card: str) -> None:
     preempted at step RESUME_PREEMPT_AT and resumed from the checkpoint
     of step RESUME_EVERY; their final checkpoints (parameters, moments,
     step) must be byte-equal."""
+    import dataclasses
+
     import torch
     from repro_torch.core.storage_service import ObjectStore
     from repro_torch.data.pipeline import DataConfig
@@ -3209,23 +3451,31 @@ def run_resume(card: str) -> None:
     tcfg = TrainerConfig(total_steps=RESUME_STEPS,
                          checkpoint_every=RESUME_EVERY, seed=TRAIN_SEED,
                          log_every=1)
+    # The uninterrupted run saves its last step alone: the comparison
+    # reads no other of its checkpoints.
+    once = dataclasses.replace(tcfg, checkpoint_every=RESUME_STEPS)
 
     def bomb(step):
         if step == RESUME_PREEMPT_AT:
             raise Preempted()
 
     whole, resumed = ObjectStore(), ObjectStore()
+    laps = Laps("train_resume")
     t0 = time.perf_counter()
     torch.use_deterministic_algorithms(True)
     try:
-        out = Trainer(cfg, whole, data, opt_cfg, tcfg, device=DEVICE).run()
+        out = Trainer(cfg, whole, data, opt_cfg, once, device=DEVICE).run()
+        laps("uninterrupted")
         cut = Trainer(cfg, resumed, data, opt_cfg, tcfg,
                       preemption_hook=bomb, device=DEVICE).run()
+        laps("preempted")
         out2 = Trainer(cfg, resumed, data, opt_cfg, tcfg,
                        device=DEVICE).run()
+        laps("resumed")
     finally:
         torch.use_deterministic_algorithms(False)
     wall = time.perf_counter() - t0
+    laps.log()
     base = f"step-{RESUME_STEPS:08d}"
     keys = [k for p in ("ckpt", "ckpt-opt")
             for k in whole.list(f"{p}/{base}/")]
@@ -3730,7 +3980,7 @@ def dist_serve(mesh, rank: int, serve_layers: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, DIST_SERVE_REQUESTS, SERVE_PROMPT,
-                        SERVE_PROMPT + DIST_SERVE_NEW, seed=SERVE_SEED,
+                        SERVE_PROMPT + DIST_CACHE_NEW, seed=SERVE_SEED,
                         impl="flash_moe", mesh=mesh)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -3762,7 +4012,7 @@ def dist_serve(mesh, rank: int, serve_layers: int) -> dict:
     # Parity: 2 moe layers, 1,024-token prompts, capacity 16.
     pcfg = parity_cfg()
     eng = ServingEngine(pcfg, DIST_SERVE_REQUESTS, DIST_PARITY_PROMPT,
-                        DIST_PARITY_PROMPT + DIST_SERVE_NEW,
+                        DIST_PARITY_PROMPT + DIST_CACHE_NEW,
                         seed=SERVE_SEED, impl="flash_moe", mesh=mesh)
     reqs = parity_requests(pcfg.vocab_size)
     toks = eng._batch_prompts(reqs)
@@ -3806,7 +4056,7 @@ def dist_tp_serve(mesh, rank: int) -> dict:
     for arch in TP_SERVE_ARCHS:
         cfg = ARCHS[arch]
         impl = SERVINGS[arch][0]
-        max_len = SERVE_PROMPT + DIST_SERVE_NEW
+        max_len = SERVE_PROMPT + DIST_CACHE_NEW
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -4114,7 +4364,7 @@ def dist_plan(card: str) -> dict:
         gathered_layer = max(per_layer.values())
         bl, s = DIST_SERVE_REQUESTS // dp, SERVE_PROMPT
         scores = 3 * bl * c.num_heads * s * s * 4
-        kv = 2 * bl * (s + DIST_SERVE_NEW) * c.num_kv_heads * c.head_dim \
+        kv = 2 * bl * (s + DIST_CACHE_NEW) * c.num_kv_heads * c.head_dim \
             * 2 * c.num_layers
         cap = -(-c.moe.top_k * bl * (s // model) * c.moe.capacity_factor
                 // c.moe.num_experts)
@@ -4374,7 +4624,7 @@ def check_dist_serve(res, card, plan) -> dict:
     # The one-process engine on the same weights.
     pcfg = parity_cfg()
     eng = ServingEngine(pcfg, DIST_SERVE_REQUESTS, DIST_PARITY_PROMPT,
-                        DIST_PARITY_PROMPT + DIST_SERVE_NEW,
+                        DIST_PARITY_PROMPT + DIST_CACHE_NEW,
                         seed=SERVE_SEED, impl="flash_moe", device=DEVICE)
     reqs = parity_requests(pcfg.vocab_size)
     toks = eng._batch_prompts(reqs)
@@ -4613,7 +4863,7 @@ def check_dist_tp_serve(res, card) -> dict:
                                  f"expected {local}")
         # The one-process engine on the same weights and prompts.
         eng = ServingEngine(cfg, DIST_SERVE_REQUESTS, SERVE_PROMPT,
-                            SERVE_PROMPT + DIST_SERVE_NEW, seed=SERVE_SEED,
+                            SERVE_PROMPT + DIST_CACHE_NEW, seed=SERVE_SEED,
                             impl=impl, device=DEVICE)
         toks = eng._batch_prompts(dist_requests(cfg.vocab_size))
         one, _ = eng.prefill(eng.model, {"tokens": toks})
@@ -4864,7 +5114,7 @@ def run_dryrun(card: str, measured) -> None:
                     summary, info = dryrun.trace_cell(
                         cfg, shape, mesh, act_rules=rules,
                         device_type=DEVICE,
-                        cache_len=SERVE_PROMPT + DIST_SERVE_NEW)
+                        cache_len=SERVE_PROMPT + DIST_CACHE_NEW)
                     failed += check_prediction(
                         f"(d6) {arch} prefill {name}", summary, m[name],
                         m["local_param_bytes"], card,
@@ -4953,14 +5203,16 @@ MODEL_CHECKS = {
     + check_rglru(rec, n),
     "rwkv6-1.6b": check_rwkv6,
     "deepseek-moe-16b": check_gmm,
+    "stablelm-3b": check_flash_mma,
 }
 
 
 # The redesigned libraries and the tensor-core instruction each must
 # hold: HGMMA (``wgmma``), HMMA (``mma.sync``), or None (the TMA-fed
 # RG-LRU scan, which has none to count).
-TC_LIBS = {"flash_attention_wgmma": "HGMMA", "moe_gmm_wgmma": "HGMMA",
-           "rwkv6_scan_tc": "HMMA", "rglru_scan_tma": None}
+TC_LIBS = {"flash_attention_wgmma": "HGMMA", "flash_attention_mma": "HMMA",
+           "moe_gmm_wgmma": "HGMMA", "rwkv6_scan_tc": "HMMA",
+           "rglru_scan_tma": None}
 
 
 def log_wgmma_builds(report) -> None:
@@ -4971,6 +5223,11 @@ def log_wgmma_builds(report) -> None:
     spilled bytes."""
     from repro_torch.kernels import build as kbuild
     tool = kbuild.cuda_tool("cuobjdump")
+    # One cuobjdump per library, all at once.
+    dumps = {} if tool is None else {name: subprocess.Popen(
+        [tool, "-sass", str(kbuild.library_path(name))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in TC_LIBS}
     for name, needed in TC_LIBS.items():
         text = report.get(name, {}).get("log", "")
         ptxas = [ln.strip() for ln in text.splitlines()
@@ -4978,11 +5235,10 @@ def log_wgmma_builds(report) -> None:
         spilled = sum(int(b) for b in re.findall(
             r"(\d+) bytes spill (?:stores|loads)", text))
         counts = {"HGMMA": None, "HMMA": None}
-        if tool is not None:
-            sass = subprocess.run(
-                [tool, "-sass", str(kbuild.library_path(name))],
-                capture_output=True, text=True, timeout=300,
-                check=True).stdout
+        if name in dumps:
+            sass, err = dumps[name].communicate(timeout=300)
+            if dumps[name].returncode:
+                raise RuntimeError(f"cuobjdump {name}: {err}")
             counts = {op: sass.count(op) for op in counts}
         log("build_wgmma", library=name, ptxas=ptxas,
             hgmma_instructions=counts["HGMMA"],
@@ -5014,6 +5270,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     started = time.perf_counter()
+    phases = Laps("phase")
+
+    def lap(name: str) -> None:
+        """The phase just ended: its seconds, and the run's so far."""
+        phases(name)
+        log("elapsed", after=name, seconds=time.perf_counter() - started)
+
     t0 = time.perf_counter()
     report = kbuild.build_all()
     regs = [ln.strip() for r in report.values() for ln in r["log"].splitlines()
@@ -5027,6 +5290,7 @@ def main() -> int:
                          ).stdout.strip().splitlines()[0]
     log("device", torch=torch.__version__, cuda=torch.version.cuda,
         name=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    lap("build")
 
     kernels, failures = [], []
     if set(QUERY_PHASES) & set(PHASES):
@@ -5041,10 +5305,13 @@ def main() -> int:
             stored_mib=store.total_bytes() / 2**20)
         launches = dict.fromkeys(QUERY_KERNELS, 0)
         recorded = wants = None
+        laps = Laps("query_phases")
         if "queries" in PHASES:
             launches, recorded, warm_walls, wants = run_queries(store,
                                                                 keys)
+            laps("queries")
             profile_queries(store, keys, warm_walls)
+            laps("profile")
         if wants is None and {"query_serving", "adaptive"} & set(PHASES):
             wants = numpy_results(store, keys)
         # Each path's launches are counted from 0 just before it; the
@@ -5052,35 +5319,49 @@ def main() -> int:
         if "query_serving" in PHASES:
             for k, n in run_query_serving(store, keys, wants).items():
                 launches[k] += n
+            laps("query_serving")
         if "adaptive" in PHASES:
             for k, n in run_adaptive(store, keys, wants).items():
                 launches[k] += n
+            laps("adaptive")
         if "paper" in PHASES:
             for k, n in run_paper(store, keys).items():
                 launches[k] += n
+            laps("paper")
         if recorded is not None:
-            kernels += check_probes(recorded, launches) \
-                + check_segment_reduce(recorded, launches)
+            kernels += check_probes(recorded, launches)
+            laps("check_probes")
+            kernels += check_segment_reduce(recorded, launches)
+            laps("check_segment_reduce")
+        laps.log()
         del store, keys, recorded, wants
-        log("elapsed", after="query phases",
-            seconds=time.perf_counter() - started)
+        lap("query phases")
+    flash_mma = 0      # the mma.sync flash route's launches on main paths
     if "serve" in PHASES:
         for arch in SERVE_ARCHS:
+            laps = Laps(f"serve_{arch}")
             eng, reqs, launches, first = run_serving(arch)
+            flash_mma += launches["flash_attention_mma"]
+            laps("serve")
             recorded, toks, failed = check_serving_reference(eng, reqs,
                                                              first)
             failures += failed
+            laps("reference_and_controls")
             profile_serving(eng, toks)
+            laps("profile")
             del eng, toks
             torch.cuda.empty_cache()
             kernels += MODEL_CHECKS[arch](recorded, launches)
             del recorded
             torch.cuda.empty_cache()
+            laps("kernel_checks")
+            laps.log()
+            lap(f"serve {arch}")
         log("elapsed", after="serve", seconds=time.perf_counter() - started)
     if "train" in PHASES:
         run_train(smi)
         run_resume(smi)
-        log("elapsed", after="train", seconds=time.perf_counter() - started)
+        lap("train")
     measured = None
     if "distributed" in PHASES:
         dist, measured = run_distributed(smi)
@@ -5089,25 +5370,27 @@ def main() -> int:
             if row["name"] in dist and row["source"].endswith(
                     ("_wgmma.cu", "_tc.cu", "_tma.cu")):
                 row["launches"] += dist[row["name"]]
-        log("elapsed", after="distributed",
-            seconds=time.perf_counter() - started)
+        lap("distributed")
     if "dryrun" in PHASES:
         run_dryrun(smi, measured)
-        log("elapsed", after="dryrun", seconds=time.perf_counter() - started)
+        lap("dryrun")
     fma = 0
     if "examples" in PHASES:
-        example_launches, example_rows = run_examples()
+        example_launches, example_routes, example_rows = run_examples()
         for row in kernels:
-            row["launches"] += example_launches[row["name"]]
+            row["launches"] += row_launches(row, example_launches,
+                                            example_routes)
         kernels += example_rows
         fma = sum(row["launches"] for row in example_rows
                   if row["source"].endswith("/flash_attention.cu"))
-        log("elapsed", after="examples",
-            seconds=time.perf_counter() - started)
+        flash_mma += example_routes["flash_attention_mma"]
+        lap("examples")
     if "domains" in PHASES:
-        kernels += check_domains(fma)
-        log("elapsed", after="domains", seconds=time.perf_counter() - started)
+        kernels += check_domains(fma, flash_mma)
+        lap("domains")
 
+    log("phase_split", card=smi, seconds=phases.seconds,
+        total_s=time.perf_counter() - started)
     if failures:
         raise AssertionError("; ".join(failures))
     print(smi)

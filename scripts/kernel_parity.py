@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Hold this tree's kernels against another checkout's on the card, bit
 for bit, on inputs both trees take: the CUDA-core flash route (float32
-and bf16 at D = 64, 80 and 256), the RWKV-6 scan's one-step-at-a-time
+and bf16 at D = 64, 80 and 256, the route forced: bf16 at D = 80 takes
+the mma.sync kernel otherwise), the RWKV-6 scan's one-step-at-a-time
 route (K, V up to 64; the served K = V = 64 with the route forced) and
 the segmented reduction through sorted ids and through host offsets.
 
@@ -46,6 +47,7 @@ def outputs() -> dict:
     from repro_torch.kernels import segment_reduce as sr
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
+    fa._route = lambda *a: "fma"
     for b, s, h, hkv, d, dt, causal, window in FLASH:
         opts = dict(dtype=getattr(torch, dt), device="cuda", generator=gen)
         q = torch.randn((b, s, h, d), **opts)

@@ -102,11 +102,13 @@ __device__ __forceinline__ float identity() {
   return 0.0f;
 }
 
-// NaN-propagating like the reference's jnp.minimum / jnp.maximum.
+// NaN-propagating like the reference's jnp.minimum / jnp.maximum, and
+// like them ordering -0.0 below +0.0: on a tie min takes the operand with
+// the sign bit, max the one without.
 template <int M>
 __device__ __forceinline__ float combine(float a, float b) {
-  if (M == kMin) return (a < b || a != a) ? a : b;
-  if (M == kMax) return (a > b || a != a) ? a : b;
+  if (M == kMin) return (a < b || a != a || (a == b && signbit(a))) ? a : b;
+  if (M == kMax) return (a > b || a != a || (a == b && !signbit(a))) ? a : b;
   return __fadd_rn(a, b);   // no contraction: the tree order is the contract
 }
 

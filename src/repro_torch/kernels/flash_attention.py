@@ -6,19 +6,23 @@ attention in float32 over KV tiles, with the TPU kernel's finite
 floor, so such a row gives 0. Takes the model layout, q (B, Sq, H, D) and
 k, v (B, Skv, Hkv, D), with kv head ``h // (H // Hkv)``; any Sq and Skv.
 
-On a CUDA tensor ``flash_attention`` launches one of two hand-written
-kernels, both reading the tensors through their strides, chosen by
+On a CUDA tensor ``flash_attention`` launches one of three hand-written
+kernels, each reading the tensors through their strides, chosen by
 ``_route`` from the dtype and head dim alone: bf16 with a head dim of 64,
-128 or 256 takes the tensor-core kernel (``csrc/flash_attention_wgmma.cu``,
-``"tc"``: ``wgmma`` products, TMA-fed K/V tiles); float32 and every other
-head dim (StableLM-3B's 80 among them) take the CUDA-core kernel
+128 or 256 takes the wgmma kernel (``csrc/flash_attention_wgmma.cu``,
+``"tc"``: ``wgmma`` products, TMA-fed K/V tiles); bf16 at every other head
+dim up to ``MMA_MAX_HEAD_DIM`` (StableLM-3B's 80 among them) takes the
+``mma.sync`` kernel (``csrc/flash_attention_mma.cu``, ``"mma"``: the head
+dim zero-filled to a multiple of 16, K/V tiles by ``cp.async``); float32,
+and bf16 over ``MMA_MAX_HEAD_DIM``, take the CUDA-core kernel
 (``csrc/flash_attention.cu``, ``"fma"``: float32 FMAs; any head dim up to
 ``MAX_HEAD_DIM``, whose tiles fill most of a block's 227 KB of shared
 memory, rows read as vectors where D is a multiple of 4). Every launch
 counts in ``FLASH_ATTENTION_LAUNCHES``, the tensor-core ones also in
-``FLASH_ATTENTION_TC_LAUNCHES``. On a CPU tensor it runs the plain
-version, which is the oracle ``ref.flash_attention_ref`` itself: one full
-score matrix and a softmax, not the kernels' tiles.
+``FLASH_ATTENTION_TC_LAUNCHES`` or ``FLASH_ATTENTION_MMA_LAUNCHES``. On a
+CPU tensor it runs the plain version, which is the oracle
+``ref.flash_attention_ref`` itself: one full score matrix and a softmax,
+not the kernels' tiles.
 """
 from __future__ import annotations
 
@@ -31,24 +35,45 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
 __all__ = ["flash_attention", "flash_attention_plain",
-           "FLASH_ATTENTION_LAUNCHES", "FLASH_ATTENTION_TC_LAUNCHES"]
+           "FLASH_ATTENTION_LAUNCHES", "FLASH_ATTENTION_TC_LAUNCHES",
+           "FLASH_ATTENTION_MMA_LAUNCHES"]
 
 MAX_HEAD_DIM = 512   # the CUDA-core kernel's largest head dim (kMaxD)
-# Head dims of the tensor-core kernel (one template each).
+# Head dims of the wgmma kernel (one template each).
 TC_HEAD_DIMS = (64, 128, 256)
+MMA_MAX_HEAD_DIM = 256   # the mma.sync kernel's largest head dim (kMaxD)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches (one per wrapper call that reaches the card), and those
-# of them on the tensor-core route.
+# of them on each tensor-core route.
 FLASH_ATTENTION_LAUNCHES = 0
 FLASH_ATTENTION_TC_LAUNCHES = 0
+FLASH_ATTENTION_MMA_LAUNCHES = 0
 
 
 def _route(dtype, d: int) -> str:
     """The kernel for q of ``dtype`` and head dim ``d``: ``"tc"`` (bf16 on
-    the tensor cores) or ``"fma"`` (float32 FMAs on the CUDA cores)."""
-    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "fma"
+    the tensor cores by wgmma), ``"mma"`` (bf16 on the tensor cores by
+    mma.sync) or ``"fma"`` (float32 FMAs on the CUDA cores)."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    if d in TC_HEAD_DIMS:
+        return "tc"
+    return "mma" if d <= MMA_MAX_HEAD_DIM else "fma"
+
+
+def _copy_bytes(d: int, tensors) -> int:
+    """Bytes of one ``cp.async`` copy of the mma route: the largest of 16,
+    8 and 4 that divides a row's bytes and every base address and stride
+    (in bytes) of ``tensors``; else 2 (one element at a time)."""
+    for g in (16, 8, 4):
+        if (2 * d) % g == 0 and all(
+                t.data_ptr() % g == 0 and all(2 * s % g == 0
+                                              for s in t.stride()[:3])
+                for t in tensors):
+            return g
+    return 2
 
 
 def _check(q, k, v):
@@ -80,6 +105,10 @@ def _lib(route: str):
             lib = kbuild.load("flash_attention_wgmma")
             fn = lib.repro_flash_attention_wgmma
             fn.argtypes = [p] * 5 + [i32] * 8 + [ctypes.c_float, p]
+        elif route == "mma":
+            lib = kbuild.load("flash_attention_mma")
+            fn = lib.repro_flash_attention_mma
+            fn.argtypes = [p] * 5 + [i32] * 8 + [ctypes.c_float, i32, p]
         else:
             lib = kbuild.load("flash_attention")
             fn = lib.repro_flash_attention
@@ -89,18 +118,27 @@ def _lib(route: str):
     return lib
 
 
-def _flash_cuda(q, k, v, causal: bool, window: int):
-    global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_TC_LAUNCHES
+def _flash_cuda(q, k, v, causal: bool, window: int, route=None):
+    """One launch of the kernel of ``_route`` (``route`` names another
+    kernel that takes the inputs, to time it beside its successor)."""
+    global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_TC_LAUNCHES, \
+        FLASH_ATTENTION_MMA_LAUNCHES
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernel takes head dims up to "
                          f"{MAX_HEAD_DIM} (a block's shared memory), not {d}")
-    route = _route(q.dtype, d)
+    route = route or _route(q.dtype, d)
+    if route != "fma" and not (q.dtype == torch.bfloat16 and (
+            d in TC_HEAD_DIMS if route == "tc" else d <= MMA_MAX_HEAD_DIM)):
+        raise ValueError(f"the {route} flash kernel does not take {q.dtype} "
+                         f"at head dim {d}")
     # TMA needs 16-byte strides (8 bf16); the CUDA-core kernel reads rows
     # as 4-element vectors where D is a multiple of 4, else one element
-    # at a time, which needs no alignment.
-    align = 8 if route == "tc" else 4 if d % 4 == 0 else 1
+    # at a time, which needs no alignment; the mma kernel's copies take
+    # whatever alignment the rows have (``_copy_bytes``).
+    align = 8 if route == "tc" else 4 if route == "fma" and d % 4 == 0 \
+        else 1
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = []
     for t in (q, k, v, out):
@@ -120,6 +158,10 @@ def _flash_cuda(q, k, v, causal: bool, window: int):
             rc = _lib(route).repro_flash_attention_wgmma(
                 *ptrs, b, sq, skv, h, hkv, d, int(causal), int(window),
                 1.0 / math.sqrt(d), stream)
+        elif route == "mma":
+            rc = _lib(route).repro_flash_attention_mma(
+                *ptrs, b, sq, skv, h, h // hkv, d, int(causal), int(window),
+                1.0 / math.sqrt(d), _copy_bytes(d, (q, k, v)), stream)
         else:
             rc = _lib(route).repro_flash_attention(
                 *ptrs, b, sq, skv, h, h // hkv, d, int(causal), int(window),
@@ -127,6 +169,7 @@ def _flash_cuda(q, k, v, causal: bool, window: int):
     kbuild.check(rc, f"flash_attention ({route} route)")
     FLASH_ATTENTION_LAUNCHES += 1
     FLASH_ATTENTION_TC_LAUNCHES += int(route == "tc")
+    FLASH_ATTENTION_MMA_LAUNCHES += int(route == "mma")
     return out
 
 

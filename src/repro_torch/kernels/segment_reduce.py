@@ -65,11 +65,25 @@ SEGMENT_OFFSETS_LAUNCHES = 0
 SEGMENT_SORT_LAUNCHES = 0
 
 
+def _min(a, b):
+    """``torch.minimum`` with ``-0.0`` below ``+0.0``, as the reference's
+    ``jnp.minimum``: on a tie the operand with the sign bit wins."""
+    return torch.where(a == b, torch.where(torch.signbit(a), a, b),
+                       torch.minimum(a, b))
+
+
+def _max(a, b):
+    """``torch.maximum`` with ``+0.0`` above ``-0.0``: on a tie the
+    operand without the sign bit wins."""
+    return torch.where(a == b, torch.where(torch.signbit(a), b, a),
+                       torch.maximum(a, b))
+
+
 def _combine(mode: str):
     if mode == "min":
-        return torch.minimum
+        return _min
     if mode == "max":
-        return torch.maximum
+        return _max
     return torch.add
 
 

@@ -16,8 +16,8 @@ Tolerance: the bf16 result within one bf16 rounding of the float32 result
 holds the kernel to on the card. Rounding P once to bf16 instead must
 break that bound: that is why the kernel splits P.
 
-``_route`` (which kernel a call takes on the card) is a pure function of
-dtype and head dim, tested here too. Inputs are made with numpy from a
+``_route`` (which of the three kernels a call takes on the card) is a
+pure function of dtype and head dim, tested here too. Inputs are made with numpy from a
 seed.
 """
 import math
@@ -174,7 +174,10 @@ def test_fully_masked_rows_give_zero(rng):
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 256, "tc"), (torch.float32, 64, "fma"),
     (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
-    (torch.bfloat16, 80, "fma"),       # StableLM-3B: the CUDA-core route
-    (torch.bfloat16, 32, "fma")])
+    (torch.bfloat16, 80, "mma"),       # StableLM-3B: the mma.sync route
+    (torch.bfloat16, 32, "mma"), (torch.bfloat16, 6, "mma"),
+    (torch.bfloat16, 36, "mma"), (torch.bfloat16, 96, "mma"),
+    (torch.bfloat16, 320, "fma"),      # over 256: the CUDA-core route
+    (torch.float32, 80, "fma")])
 def test_route_by_dtype_and_head_dim(dtype, d, route):
     assert tfa._route(dtype, d) == route

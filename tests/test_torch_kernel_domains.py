@@ -309,11 +309,13 @@ def test_flash_any_head_dim_matches_pallas(rng, d, causal, window):
 @pytest.mark.parametrize("d", [6, 36, 320, tfa.MAX_HEAD_DIM])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_card_path_takes_any_head_dim(d, dtype):
-    """Every head dim up to ``MAX_HEAD_DIM`` takes the CUDA-core route and
-    passes the card path's layout checks as a contiguous tensor (an
-    empty query reaches no launch); a wider one raises, naming the
-    limit."""
-    assert tfa._route(dtype, d) == "fma"
+    """Every head dim up to ``MAX_HEAD_DIM`` takes a route (bf16 up to
+    ``MMA_MAX_HEAD_DIM`` the mma.sync kernel, the rest the CUDA-core
+    kernel) and passes the card path's layout checks as a contiguous
+    tensor (an empty query reaches no launch); a wider one raises, naming
+    the limit."""
+    mma = dtype == torch.bfloat16 and d <= tfa.MMA_MAX_HEAD_DIM
+    assert tfa._route(dtype, d) == ("mma" if mma else "fma")
     q = torch.zeros((1, 0, 2, d), dtype=dtype)
     kv = torch.zeros((1, 5, 1, d), dtype=dtype)
     assert tfa._flash_cuda(q, kv, kv, True, 0).shape == (1, 0, 2, d)
