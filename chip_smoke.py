@@ -11,10 +11,11 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
 1. build  — compile the hand-written kernels under
    ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all at once); log
    ptxas' report for the four tensor-core kernels and the count of their
-   HGMMA (``wgmma``: flash attention at D = 64, 128, 256, the grouped
-   matmul) or HMMA (``mma.sync``: flash attention at other bf16 head
-   dims, the RWKV-6 scan) instructions, which must not be 0, and for the
-   TMA-fed RG-LRU scan; no report may show spills;
+   HGMMA (``wgmma``: flash attention at bf16 head dims that are
+   multiples of 16 up to 256, counted in each of its 16 instances, the
+   grouped matmul) or HMMA (``mma.sync``: flash attention at other bf16
+   head dims, the RWKV-6 scan) instructions, which must not be 0, and for
+   the TMA-fed RG-LRU scan; no report may show spills;
 2. load   — generate TPC-H ``lineitem`` (6,000,000 rows, one object: one
    paper worker's ~182 MiB SF1000 partition) and ``orders`` (1,500,000
    rows) into the port's object store;
@@ -73,7 +74,7 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    three times per ``moe`` layer and batch, 162 in all, every one on the
    tensor-core route; the reference attention) and StableLM-3B
    (``impl="flash"``: flash attention once per ``attn`` layer and batch,
-   64 in all, every one on the mma.sync route, head dim 80). No other
+   64 in all, every one on the tensor-core route, head dim 80). No other
    model kernel may launch. Each model's first batch's
    prefill is then run again on the reference route (``impl="reference"``)
    and its last-token logits held against the kernel route's (for
@@ -90,9 +91,11 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    (flash attention, bf16 on the tensor-core route, also at InternLM2's and
    MusicGen-medium's shapes, D = 128 and 64, and in float32 on the
    CUDA-core route, where a window edge off by one must show; at
-   StableLM-3B's shape on the mma.sync route, also timed beside the
-   CUDA-core kernel on the same inputs, whose time it must cut to a fifth
-   or less; the scans
+   StableLM-3B's shape on the tensor-core route, its head dim's 16-column
+   tail zero-filled, also timed beside the mma.sync kernel on the same
+   inputs (the route D = 80 took before), whose time it must cut to
+   ``TC_MAX_SHARE_OF_MMA`` or less, and at D = 80 two planted faults (S
+   without the tail, O's tail zeroed) must fail the check; the scans
    also at a strong decay, where the RWKV-6 scan is held against the step
    oracle, and the RWKV-6 scan at a ragged length and at an extreme decay
    (log_w near -60 and near -1e-3 mixed in each chunk), and on its
@@ -224,7 +227,10 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    take: flash attention at D = 6, 36 and 320 (1 x 4,096 tokens, 8 heads,
    2 KV heads; causal, D = 36 with a 1,024-key window), float32 and bf16,
    each on its route (asserted: bf16 at D = 6 and 36 the mma.sync
-   kernel, float32 and D = 320 the CUDA-core kernel); the RWKV-6 scan at
+   kernel, float32 and D = 320 the CUDA-core kernel); bf16 at D = 16, 48,
+   80, 96, 112, 144, 176, 208 and 240 on the tensor-core route (a small
+   shape: GQA, a window, Skv ragged and unequal to Sq), each against its
+   plain version, logged; the RWKV-6 scan at
    K = V = 128 and at K = 128, V = 160 (4 x 4,096 tokens, 16 heads,
    bf16) on its one-step-at-a-time
    route; each against its plain version, timed, with a row of the
@@ -325,10 +331,6 @@ SERVINGS = {
     "stablelm-3b": ("flash", {"flash_attention": ("attn", 1)}),
 }
 SERVE_ARCHS = tuple(SERVINGS)     # a quick call may serve only some
-# The route every launch of a kernel in ``serve`` must take, where it is
-# not the kernel's ``TC_ROUTES`` one: StableLM-3B's head dim of 80 takes
-# flash attention's mma.sync kernel.
-SERVE_ROUTES = {"stablelm-3b": {"flash_attention": "flash_attention_mma"}}
 SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN = 4, 4096, 4128
 SERVE_MIN_PROMPT = 1024           # prompt lengths drawn in [1024, 4096]
 SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_SEED = 8, 32, 0
@@ -343,10 +345,15 @@ MUSICGEN_ATTN = ((1, 4096, 24, 64), 24)
 # (B, S, H, K, V), RWKV-6 1.6B's width in heads of 128.
 FLASH_DOMAIN_SHAPE = (1, 4096, 8, 2)
 FLASH_DOMAINS = ((6, True, 0), (36, True, 1024), (320, True, 0))
-# Flash attention's mma.sync kernel at StableLM-3B's serving shape must
-# take at most this share of the CUDA-core kernel's time on the same
+# The tensor-core route's bf16 head dims with a tail past a multiple of
+# 64 (and 112, 144, 176, 240 beside them), at (B, Sq, Skv, H, Hkv, window),
+# causal: GQA, a window, Skv ragged and unequal to Sq.
+TC_DOMAIN_DIMS = (16, 48, 80, 96, 112, 144, 176, 208, 240)
+TC_DOMAIN_SHAPE = (2, 333, 301, 4, 2, 64)
+# Flash attention's tensor-core kernel at StableLM-3B's serving shape must
+# take at most this share of the mma.sync kernel's time on the same
 # inputs (the route it replaced for bf16 at D = 80).
-MMA_MAX_SHARE_OF_FMA = 0.2
+TC_MAX_SHARE_OF_MMA = 0.6
 RWKV_DOMAINS = ((4, 4096, 16, 128, 128), (4, 4096, 16, 128, 160))
 # Largest |kernel route - reference route| last-token logit allowed, per
 # model: 2.5 times the largest difference between two sound routes of the
@@ -580,8 +587,8 @@ def _kernel_modules():
 
 def _route_counters():
     """Launches of a kernel's route, counted beside its kernel's own:
-    flash attention's two tensor-core routes (wgmma: bf16 at D = 64, 128,
-    256; mma.sync: bf16 at every other D up to 256), the
+    flash attention's two tensor-core routes (wgmma: bf16 at D a multiple
+    of 16 up to 256; mma.sync: bf16 at every other D up to 256), the
     grouped matmul's (bf16 with D and F multiples of 8), the RWKV-6
     scan's (K = V = 64) and the RG-LRU scan's TMA route (W * 4 a multiple
     of 16 bytes); and the segmented reduction's sorts of unsorted ids,
@@ -627,6 +634,18 @@ def row_launches(row, launches, routes) -> int:
     if row["source"].endswith("_mma.cu"):
         return mma
     return launches["flash_attention"] - tc - mma
+
+
+def add_launches(kernels, launches_of) -> None:
+    """Add one path's launches, ``launches_of(row)``, to the kernels
+    line: a kernel with rows at several shapes of one source (flash
+    attention's tensor-core rows, RecurrentGemma-2B's first) counts them
+    on its first."""
+    counted = set()
+    for row in kernels:
+        if (row["name"], row["source"]) not in counted:
+            counted.add((row["name"], row["source"]))
+            row["launches"] += launches_of(row)
 
 
 def reset_launch_counts() -> None:
@@ -1869,7 +1888,7 @@ def run_serving(arch: str):
         raise AssertionError(f"{arch}: other kernels launched in serve: "
                              f"{launches}")
     for k in want:
-        route = SERVE_ROUTES.get(arch, {}).get(k, TC_ROUTES.get(k))
+        route = TC_ROUTES.get(k)
         if route is not None and routes[route] != launches[k]:
             raise AssertionError(f"{arch}: {routes[route]} of "
                                  f"{launches[k]} {k} launches took the "
@@ -2306,15 +2325,17 @@ def check_flash_f32(q, k, v, got, causal, window) -> dict:
     return out
 
 
-def check_flash_mma(recorded, launches):
+def check_flash_stablelm(recorded, launches):
     """Flash attention at the shape StableLM-3B's serve phase gave it (q,
-    k, v (4, 4096, 32, 80) bf16, causal): the mma.sync kernel against its
-    plain version within BF16_TOL and, on the inputs widened to float32,
-    against the float32 result (``check_flash_f32``); timed beside its
-    bound, the plain version, ``scaled_dot_product_attention`` and the
-    CUDA-core kernel on the same inputs (called directly: the route bf16
-    at D = 80 took before), whose time it must cut to
-    ``MMA_MAX_SHARE_OF_FMA`` or less."""
+    k, v (4, 4096, 32, 80) bf16, causal): the tensor-core kernel, its head
+    dim's 16-column tail zero-filled, against its plain version within
+    BF16_TOL and, on the inputs widened to float32, against the float32
+    result (``check_flash_f32``); two planted faults must fail the first
+    check (S without the tail: q and k columns 64-79 zeroed in the plain
+    version; O's columns 64-79 zeroed). Timed beside its bound, the plain
+    version, ``scaled_dot_product_attention`` and the mma.sync kernel on
+    the same inputs (called directly: the route bf16 at D = 80 took
+    before), whose time it must cut to ``TC_MAX_SHARE_OF_MMA`` or less."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -2322,13 +2343,13 @@ def check_flash_mma(recorded, launches):
     causal, window = kw.get("causal", True), kw.get("window", 0)
     b, sq, h, d = q.shape
     skv = k.shape[1]
-    if fa._route(q.dtype, d) != "mma":
+    if fa._route(q.dtype, d) != "tc":
         raise AssertionError(f"flash attention {tuple(q.shape)} {q.dtype}: "
-                             "not the mma.sync route")
+                             "not the tensor-core route")
     kern = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa: E731
                                       window=window)
-    fma = lambda: fa._flash_cuda(q, k, v, causal, window,  # noqa: E731
-                                 route="fma")
+    mma = lambda: fa._flash_cuda(q, k, v, causal, window,  # noqa: E731
+                                 route="mma")
     plain = lambda: fa.flash_attention_plain(  # noqa: E731
         q, k, v, causal=causal, window=window)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -2339,41 +2360,60 @@ def check_flash_mma(recorded, launches):
         mask = {"attn_mask": (kp <= qp) & (kp > qp - window)}
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, enable_gqa=True, **mask)
-    mma0 = fa.FLASH_ATTENTION_MMA_LAUNCHES
+    tc0 = fa.FLASH_ATTENTION_TC_LAUNCHES
     got = kern()
-    if fa.FLASH_ATTENTION_MMA_LAUNCHES != mma0 + 1:
+    if fa.FLASH_ATTENTION_TC_LAUNCHES != tc0 + 1:
         raise AssertionError("flash attention: bf16 at D = 80 did not take "
-                             "the mma.sync route")
+                             "the tensor-core route")
     want = plain()
     torch.cuda.synchronize()
     err = within(got, want, BF16_TOL)
-    fma_err = within(fma(), want, BF16_TOL)
+    mma_err = within(mma(), want, BF16_TOL)
+    planted = {}
+    qz, kz = q.clone(), k.clone()
+    qz[..., 64:], kz[..., 64:] = 0, 0
+    no_tail = fa.flash_attention_plain(qz, kz, v, causal=causal,
+                                       window=window)
+    del qz, kz
+    o_zeroed = got.clone()
+    o_zeroed[..., 64:] = 0
+    for name, a, c in (("s_without_tail", got, no_tail),
+                       ("o_tail_zeroed", o_zeroed, want)):
+        planted[name] = float((a.float() - c.float()).abs().max())
+        try:
+            within(a, c, BF16_TOL)
+        except AssertionError:
+            continue
+        raise AssertionError(f"flash attention at D = 80: the planted "
+                             f"fault {name} passed the check")
+    del no_tail, o_zeroed, want
     tight = check_flash_f32(q, k, v, got, causal, window)
     pairs = band_pairs(sq, skv, causal, window)
     flops = 4.0 * b * h * d * pairs
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) \
         * q.element_size()
     t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, bound_ms(nbytes)
-    fma_per = time_spread(fma)
+    mma_per = time_spread(mma)
     row = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/csrc/flash_attention_mma.cu",
+           "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
            "replaces": "src/repro/kernels/flash_attention.py:22",
-           "launches": launches["flash_attention_mma"], "max_abs_err": err,
+           "launches": launches["flash_attention_tc"], "max_abs_err": err,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            **kernel_times(kern, plain, lib)}
-    fma_ms = fma_per[len(fma_per) // 2]
+    mma_ms = mma_per[len(mma_per) // 2]
     log("kernel", **row, case="stablelm_serve", shape=[b, sq, h, d],
         kv_heads=k.shape[2], causal=causal, window=window, band_pairs=pairs,
-        flops=flops, bytes=nbytes, kernel_route="mma",
-        tflops_per_s=flops / row["ms"] / 1e9, cuda_core_ms=fma_ms,
-        cuda_core_ms_min=fma_per[0], cuda_core_ms_max=fma_per[-1],
-        cuda_core_max_abs_err=fma_err, share_of_cuda_core=row["ms"] / fma_ms,
-        max_share=MMA_MAX_SHARE_OF_FMA, **tight)
-    if row["ms"] > MMA_MAX_SHARE_OF_FMA * fma_ms:
-        raise AssertionError(f"flash attention's mma.sync route takes "
-                             f"{row['ms']} ms against the CUDA-core "
-                             f"kernel's {fma_ms} ms")
+        flops=flops, bytes=nbytes, kernel_route="tc",
+        tflops_per_s=flops / row["ms"] / 1e9, mma_ms=mma_ms,
+        mma_ms_min=mma_per[0], mma_ms_max=mma_per[-1],
+        mma_max_abs_err=mma_err, share_of_mma=row["ms"] / mma_ms,
+        max_share=TC_MAX_SHARE_OF_MMA, planted_max_abs_diff=planted,
+        **tight)
+    if row["ms"] > TC_MAX_SHARE_OF_MMA * mma_ms:
+        raise AssertionError(f"flash attention's tensor-core route takes "
+                             f"{row['ms']} ms at D = 80 against the mma.sync "
+                             f"kernel's {mma_ms} ms")
     return [{key: row[key] for key in ROW_KEYS}]
 
 
@@ -2706,19 +2746,21 @@ def check_rwkv6(recorded, launches):
 
 
 def check_domains(fma_launches: int, mma_launches: int) -> list:
-    """Phase ``domains``: head dims that no served model but StableLM-3B
-    has and the Pallas kernels take. Flash attention at ``FLASH_DOMAINS``
+    """Phase ``domains``: head dims that no served model has and the
+    Pallas kernels take. Flash attention at ``FLASH_DOMAINS``
     (D = 6, 36 and 320) in float32 and bf16, each call on the route
     ``_route`` gives it (asserted: float32 and bf16 at D = 320 the
     CUDA-core kernel, bf16 at D = 6 and 36 the mma.sync kernel), against
-    its plain version (F32_ATTN_TOL, BF16_TOL); the RWKV-6 scan at
+    its plain version (F32_ATTN_TOL, BF16_TOL); bf16 at ``TC_DOMAIN_DIMS``
+    on the tensor-core route at ``TC_DOMAIN_SHAPE`` against its plain
+    version (BF16_TOL), logged; the RWKV-6 scan at
     ``RWKV_DOMAINS`` (K = V = 128, and V = 160), bf16 r, k, v, on its
     one-step-at-a-time route, against its plain version (the outputs
     within BF16_TOL and the final state within RWKV_TOL of the size of
     its terms). Each is timed and gets a row of the kernels line; a
     row's launches are its route's on the main paths (``fma_launches``
     of the CUDA-core flash route, the examples'; ``mma_launches`` of the
-    mma.sync route, StableLM-3B's; none of the seq route)."""
+    mma.sync route; none of the seq route)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -2786,6 +2828,22 @@ def check_domains(fma_launches: int, mma_launches: int) -> list:
                 tflops_per_s=flops / row["ms"] / 1e9)
             rows.append({key: row[key] for key in ROW_KEYS})
             del q, k, v, qt, kt, vt, band, got, want
+    b, sq, skv, h, hkv, window = TC_DOMAIN_SHAPE
+    bf = dict(dtype=torch.bfloat16, device=DEVICE, generator=gen)
+    for d in TC_DOMAIN_DIMS:
+        q = torch.randn((b, sq, h, d), **bf)
+        k, v = (torch.randn((b, skv, hkv, d), **bf) for _ in range(2))
+        tc0 = fa.FLASH_ATTENTION_TC_LAUNCHES
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        if fa._route(q.dtype, d) != "tc" or \
+                fa.FLASH_ATTENTION_TC_LAUNCHES != tc0 + 1:
+            raise AssertionError(f"flash attention D = {d} bf16: not one "
+                                 "launch of the tensor-core route")
+        want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+        log("kernel_sweep", name="flash_attention", case=f"head_dim_{d}",
+            shape=[b, sq, h, d], skv=skv, kv_heads=hkv, causal=True,
+            window=window, kernel_route="tc",
+            max_abs_err=within(got, want, BF16_TOL), tol=BF16_TOL)
     f32 = dict(dtype=torch.float32, device=DEVICE, generator=gen)
     for b, s, h, kd, vd in RWKV_DOMAINS:
         r, k = (torch.randn((b, s, h, kd), **f32).mul_(0.5).bfloat16()
@@ -5203,7 +5261,7 @@ MODEL_CHECKS = {
     + check_rglru(rec, n),
     "rwkv6-1.6b": check_rwkv6,
     "deepseek-moe-16b": check_gmm,
-    "stablelm-3b": check_flash_mma,
+    "stablelm-3b": check_flash_stablelm,
 }
 
 
@@ -5219,8 +5277,9 @@ def log_wgmma_builds(report) -> None:
     """Each redesigned library as built: ptxas' report (registers,
     shared memory, spills) and, where the toolkit has ``cuobjdump``, the
     count of its tensor-core instructions, HGMMA and HMMA; the one
-    ``TC_LIBS`` names must not be 0, and ptxas' report must show no
-    spilled bytes."""
+    ``TC_LIBS`` names must not be 0 (nor, for HGMMA, in any of the
+    library's ``wgmma`` kernel instances: flash attention's 16 head
+    dims), and ptxas' report must show no spilled bytes."""
     from repro_torch.kernels import build as kbuild
     tool = kbuild.cuda_tool("cuobjdump")
     # One cuobjdump per library, all at once.
@@ -5235,17 +5294,27 @@ def log_wgmma_builds(report) -> None:
         spilled = sum(int(b) for b in re.findall(
             r"(\d+) bytes spill (?:stores|loads)", text))
         counts = {"HGMMA": None, "HMMA": None}
+        instances = {}
         if name in dumps:
             sass, err = dumps[name].communicate(timeout=300)
             if dumps[name].returncode:
                 raise RuntimeError(f"cuobjdump {name}: {err}")
             counts = {op: sass.count(op) for op in counts}
+            # HGMMA in each wgmma kernel instance (SASS per function).
+            for part in sass.split("Function : ")[1:]:
+                fn = part.split(None, 1)[0]
+                if "wgmma_kernel" in fn:
+                    instances[fn] = part.count("HGMMA")
         log("build_wgmma", library=name, ptxas=ptxas,
             hgmma_instructions=counts["HGMMA"],
-            hmma_instructions=counts["HMMA"], spilled_bytes=spilled)
+            hmma_instructions=counts["HMMA"], spilled_bytes=spilled,
+            hgmma_by_instance=instances)
         if needed is not None and counts[needed] == 0:
             raise AssertionError(f"the tensor-core library {name} holds no "
                                  f"{needed} instruction")
+        if needed == "HGMMA" and not all(instances.values()):
+            raise AssertionError(f"wgmma kernel instances of {name} with no "
+                                 f"HGMMA: {instances}")
         if spilled:
             raise AssertionError(f"ptxas spilled {spilled} bytes in {name}")
 
@@ -5366,10 +5435,8 @@ def main() -> int:
     if "distributed" in PHASES:
         dist, measured = run_distributed(smi)
         # The flash row of the CUDA-core route is the examples' own.
-        for row in kernels:
-            if row["name"] in dist and row["source"].endswith(
-                    ("_wgmma.cu", "_tc.cu", "_tma.cu")):
-                row["launches"] += dist[row["name"]]
+        add_launches(kernels, lambda row: dist.get(row["name"], 0) if row[
+            "source"].endswith(("_wgmma.cu", "_tc.cu", "_tma.cu")) else 0)
         lap("distributed")
     if "dryrun" in PHASES:
         run_dryrun(smi, measured)
@@ -5377,9 +5444,8 @@ def main() -> int:
     fma = 0
     if "examples" in PHASES:
         example_launches, example_routes, example_rows = run_examples()
-        for row in kernels:
-            row["launches"] += row_launches(row, example_launches,
-                                            example_routes)
+        add_launches(kernels, lambda row: row_launches(
+            row, example_launches, example_routes))
         kernels += example_rows
         fma = sum(row["launches"] for row in example_rows
                   if row["source"].endswith("/flash_attention.cu"))

@@ -4,11 +4,15 @@
     python3 scripts/flash_mma_check.py
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit. It builds ``src/repro_torch/csrc/flash_attention_mma.cu`` as it
-is and two variants made by editing its text (one ``nvcc`` each, all at
-once, into ``build/flash_mma_variants/``) and prints, per library,
-ptxas' registers and spills of each head-dim instance (DP). Then, with
-the kernel as it is:
+toolkit. Every call names the mma.sync route (``_flash_cuda(...,
+route="mma")``), which bf16 takes by itself only at head dims that are no
+multiple of 16 (the others take the wgmma kernel, checked by
+``scripts/flash_tc_check.py``). It builds
+``src/repro_torch/csrc/flash_attention_mma.cu`` as it is and two
+variants made by editing its text (one ``nvcc`` each, all at once, into
+``build/flash_mma_variants/``) and prints, per library, ptxas' registers
+and spills of each head-dim instance (DP). Then, with the kernel as it
+is:
 
 - bf16 q, k, v at head dims 6 to 255 (every padded width, GQA and MHA,
   causal, windowed and full, Sq != Skv, D = 37 with its one-element
@@ -18,7 +22,8 @@ the kernel as it is:
 - at StableLM-3B's prefill shape, q, k, v (4, 4096, 32, 80) bf16 causal:
   the kernel, the CUDA-core kernel on the same inputs (the route it
   replaced), ``scaled_dot_product_attention`` and the plain version, in
-  turns, five CUDA-event batches each, beside the bound;
+  turns, five CUDA-event batches each, beside the bound (the wgmma
+  route's time there: ``scripts/flash_tc_check.py``);
 - the variants at the same shape, in turns (all, then all in reverse):
   ``four_blocks`` (``__launch_bounds__`` asking four blocks an SM up to
   DP = 96: whether occupancy holds the kernel back) and ``no_lo_half`` (P
@@ -143,7 +148,7 @@ def main() -> int:
         q = torch.randn((b, sq, h, d), **bf)
         k, v = (torch.randn((b, skv, hkv, d), **bf) for _ in range(2))
         n0 = fa.FLASH_ATTENTION_MMA_LAUNCHES
-        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        got = fa._flash_cuda(q, k, v, causal, window, route="mma")
         want = fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window)
         torch.cuda.synchronize()
@@ -159,7 +164,7 @@ def main() -> int:
             out(case=case, failed=str(e)[:400])
     qkv = torch.randn((2, 300, 3, 8, 80), **bf)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    got = fa.flash_attention(q, k, v, causal=True)
+    got = fa._flash_cuda(q, k, v, True, 0, route="mma")
     want = fa.flash_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
     out(case="qkv_views", copy_bytes=fa._copy_bytes(80, (q, k, v)),
@@ -169,7 +174,7 @@ def main() -> int:
     q, k, v = (torch.randn((b, s, h, d), **bf) for _ in range(3))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     funcs = {
-        "mma": lambda: fa.flash_attention(q, k, v, causal=True),
+        "mma": lambda: fa._flash_cuda(q, k, v, True, 0, route="mma"),
         "cuda_core": lambda: fa._flash_cuda(q, k, v, True, 0, route="fma"),
         "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True),

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Hold this tree's kernels against another checkout's on the card, bit
 for bit, on inputs both trees take: the CUDA-core flash route (float32
-and bf16 at D = 64, 80 and 256, the route forced: bf16 at D = 80 takes
-the mma.sync kernel otherwise), the RWKV-6 scan's one-step-at-a-time
-route (K, V up to 64; the served K = V = 64 with the route forced) and
-the segmented reduction through sorted ids and through host offsets.
+and bf16 at D = 64, 80 and 256, the route forced: bf16 at D = 80 takes a
+tensor-core kernel otherwise), the wgmma flash route at D = 64, 128 and
+256 (bf16, the serving shapes among them), the mma.sync flash route
+forced at D = 80 (bf16), the RWKV-6 scan's one-step-at-a-time route (K,
+V up to 64; the served K = V = 64 with the route forced) and the
+segmented reduction through sorted ids and through host offsets.
 
     python3 scripts/kernel_parity.py OTHER_CHECKOUT
 
@@ -31,6 +33,13 @@ FLASH = ((2, 700, 4, 2, 80, "float32", True, 0),
          (2, 700, 4, 2, 64, "float32", True, 128),
          (1, 513, 4, 1, 256, "float32", False, 0),
          (2, 700, 4, 2, 80, "bfloat16", True, 0))
+# (B, S, H, Hkv, D, causal, window) of the wgmma route (bf16), among them
+# RecurrentGemma-2B's, InternLM2-1.8B's and MusicGen-medium's serving
+# shapes, and of the mma.sync route forced at D = 80 (bf16).
+FLASH_TC = ((4, 4096, 10, 1, 256, True, 2048), (1, 513, 4, 1, 256, False, 0),
+            (1, 4096, 16, 8, 128, True, 0), (2, 700, 6, 3, 128, False, 300),
+            (1, 4096, 24, 24, 64, True, 0), (2, 700, 4, 2, 64, True, 100))
+FLASH_MMA = ((2, 700, 4, 2, 80, True, 0), (1, 1000, 8, 8, 80, True, 128))
 # (B, S, H, K, V, dtype) of the RWKV-6 seq route; K = V = 64 forced there.
 RWKV = ((2, 1000, 3, 32, 48, "float32"), (2, 1000, 3, 32, 48, "bfloat16"),
         (1, 300, 2, 64, 16, "float32"), (2, 1000, 3, 64, 64, "bfloat16"))
@@ -47,6 +56,13 @@ def outputs() -> dict:
     from repro_torch.kernels import segment_reduce as sr
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
+    bf = dict(dtype=torch.bfloat16, device="cuda", generator=gen)
+    for route, cases in (("tc", FLASH_TC), ("mma", FLASH_MMA)):
+        for b, s, h, hkv, d, causal, window in cases:
+            q = torch.randn((b, s, h, d), **bf)
+            k, v = (torch.randn((b, s, hkv, d), **bf) for _ in range(2))
+            out[f"flash {route} b{b} s{s} h{h}/{hkv} d{d} w{window}"] = \
+                fa._flash_cuda(q, k, v, causal, window, route=route)
     fa._route = lambda *a: "fma"
     for b, s, h, hkv, d, dt, causal, window in FLASH:
         opts = dict(dtype=getattr(torch, dt), device="cuda", generator=gen)

@@ -8,13 +8,15 @@ k, v (B, Skv, Hkv, D), with kv head ``h // (H // Hkv)``; any Sq and Skv.
 
 On a CUDA tensor ``flash_attention`` launches one of three hand-written
 kernels, each reading the tensors through their strides, chosen by
-``_route`` from the dtype and head dim alone: bf16 with a head dim of 64,
-128 or 256 takes the wgmma kernel (``csrc/flash_attention_wgmma.cu``,
-``"tc"``: ``wgmma`` products, TMA-fed K/V tiles); bf16 at every other head
-dim up to ``MMA_MAX_HEAD_DIM`` (StableLM-3B's 80 among them) takes the
-``mma.sync`` kernel (``csrc/flash_attention_mma.cu``, ``"mma"``: the head
-dim zero-filled to a multiple of 16, K/V tiles by ``cp.async``); float32,
-and bf16 over ``MMA_MAX_HEAD_DIM``, take the CUDA-core kernel
+``_route`` from the dtype and head dim alone: bf16 with a head dim that is
+a multiple of 16 up to ``TC_MAX_HEAD_DIM`` (StableLM-3B's 80 among them)
+takes the wgmma kernel (``csrc/flash_attention_wgmma.cu``, ``"tc"``:
+``wgmma`` products, TMA-fed K/V tiles, the head dim's tail past a multiple
+of 64 zero-filled by TMA); bf16 at every other head dim up to
+``MMA_MAX_HEAD_DIM`` (6, 36, 37, 200, ...) takes the ``mma.sync`` kernel
+(``csrc/flash_attention_mma.cu``, ``"mma"``: the head dim zero-filled to a
+multiple of 16, K/V tiles by ``cp.async``); float32, and bf16 over
+``MMA_MAX_HEAD_DIM``, take the CUDA-core kernel
 (``csrc/flash_attention.cu``, ``"fma"``: float32 FMAs; any head dim up to
 ``MAX_HEAD_DIM``, whose tiles fill most of a block's 227 KB of shared
 memory, rows read as vectors where D is a multiple of 4). Every launch
@@ -39,8 +41,9 @@ __all__ = ["flash_attention", "flash_attention_plain",
            "FLASH_ATTENTION_MMA_LAUNCHES"]
 
 MAX_HEAD_DIM = 512   # the CUDA-core kernel's largest head dim (kMaxD)
-# Head dims of the wgmma kernel (one template each).
-TC_HEAD_DIMS = (64, 128, 256)
+# The wgmma kernel takes bf16 head dims that are multiples of 16 up to
+# this (one template each).
+TC_MAX_HEAD_DIM = 256
 MMA_MAX_HEAD_DIM = 256   # the mma.sync kernel's largest head dim (kMaxD)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,9 +61,14 @@ def _route(dtype, d: int) -> str:
     mma.sync) or ``"fma"`` (float32 FMAs on the CUDA cores)."""
     if dtype != torch.bfloat16:
         return "fma"
-    if d in TC_HEAD_DIMS:
+    if _tc_takes(d):
         return "tc"
     return "mma" if d <= MMA_MAX_HEAD_DIM else "fma"
+
+
+def _tc_takes(d: int) -> bool:
+    """Whether the wgmma kernel has an instance for bf16 head dim ``d``."""
+    return d % 16 == 0 and 0 < d <= TC_MAX_HEAD_DIM
 
 
 def _copy_bytes(d: int, tensors) -> int:
@@ -130,7 +138,7 @@ def _flash_cuda(q, k, v, causal: bool, window: int, route=None):
                          f"{MAX_HEAD_DIM} (a block's shared memory), not {d}")
     route = route or _route(q.dtype, d)
     if route != "fma" and not (q.dtype == torch.bfloat16 and (
-            d in TC_HEAD_DIMS if route == "tc" else d <= MMA_MAX_HEAD_DIM)):
+            _tc_takes(d) if route == "tc" else d <= MMA_MAX_HEAD_DIM)):
         raise ValueError(f"the {route} flash kernel does not take {q.dtype} "
                          f"at head dim {d}")
     # TMA needs 16-byte strides (8 bf16); the CUDA-core kernel reads rows

@@ -1,14 +1,15 @@
 """The mma.sync flash-attention kernel's arithmetic, on the CPU.
 
-``csrc/flash_attention_mma.cu`` (bf16 at every head dim up to 256 but 64,
-128 and 256) runs only on an H100, so this file holds a plain-PyTorch
-emulation of its arithmetic: the head dim zero-filled to the kernel's
-padded width DP, 64-row query blocks of four 16-row warps, KV tiles of
-64 keys (16 above DP = 192) over the block's band (tiles wholly outside a
-warp's band skipped), the online softmax in float32 in base 2 (unscaled
-scores, the scale folded into the exponent's FMA), P split into bf16 hi
-and lo halves for the two P V products, the row sum from the unrounded
-p, and one rounding of the output to bf16. DP and the tile width are
+``csrc/flash_attention_mma.cu`` (bf16 at head dims up to 256 that are no
+multiple of 16; the others take the wgmma kernel, but this one still
+takes them when named) runs only on an H100, so this file holds a
+plain-PyTorch emulation of its arithmetic: the head dim zero-filled to
+the kernel's padded width DP, 64-row query blocks of four 16-row warps,
+KV tiles of 64 keys (16 above DP = 192) over the block's band (tiles
+wholly outside a warp's band skipped), the online softmax in float32 in
+base 2 (unscaled scores, the scale folded into the exponent's FMA), P
+split into bf16 hi and lo halves for the two P V products, the row sum
+from the unrounded p, and one rounding of the output to bf16. DP and the tile width are
 read out of the ``.cu``. The emulation is held against the Pallas kernel
 in interpret mode (``flash_attention_hmajor``, on the bf16 inputs' exact
 float32 values) at D = 16, 36, 80 and 96, causal and windowed, GQA and
@@ -226,11 +227,12 @@ def test_copy_width_follows_strides_and_bases():
     assert tfa._copy_bytes(80, (off, k, v)) == 2
 
 
-@pytest.mark.parametrize("d", [6, 36, 80, 96, 200])
+@pytest.mark.parametrize("d", [6, 36, 37, 200])
 def test_card_path_takes_bf16_head_dims_on_the_mma_route(d):
-    """The route by dtype and D, and the card path's layout checks of a
-    contiguous tensor (an empty query reaches no launch); naming another
-    route that does not take the inputs raises."""
+    """The route by dtype and D (bf16 head dims that are no multiple of
+    16), and the card path's layout checks of a contiguous tensor (an
+    empty query reaches no launch); naming another route that does not
+    take the inputs raises."""
     assert tfa._route(torch.bfloat16, d) == "mma"
     assert tfa._route(torch.float32, d) == "fma"
     q = torch.zeros((1, 0, 2, d), dtype=torch.bfloat16)
@@ -243,3 +245,21 @@ def test_card_path_takes_bf16_head_dims_on_the_mma_route(d):
     with pytest.raises(ValueError, match="mma flash kernel does not take"):
         tfa._flash_cuda(q.float(), kv.float(), kv.float(), True, 0,
                         route="mma")
+
+
+@pytest.mark.parametrize("d", [80, 96])
+def test_card_path_takes_bf16_multiples_of_16_on_the_tc_route(d):
+    """bf16 head dims that are multiples of 16 take the wgmma route, and
+    pass its layout checks; the mma.sync and CUDA-core kernels can still
+    be named for them (to time the route beside them); float32 takes the
+    CUDA-core route."""
+    assert tfa._route(torch.bfloat16, d) == "tc"
+    assert tfa._route(torch.float32, d) == "fma"
+    q = torch.zeros((1, 0, 2, d), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 5, 1, d), dtype=torch.bfloat16)
+    for route in (None, "mma", "fma"):
+        assert tfa._flash_cuda(q, kv, kv, True, 0, route=route).shape \
+            == (1, 0, 2, d)
+    with pytest.raises(ValueError, match="tc flash kernel does not take"):
+        tfa._flash_cuda(q.float(), kv.float(), kv.float(), True, 0,
+                        route="tc")

@@ -3,24 +3,31 @@
 ``csrc/flash_attention_wgmma.cu`` runs only on an H100, so this file holds
 a plain-PyTorch emulation of its arithmetic: 128-row query blocks in two
 64-row warpgroups, 64-key tiles over the block's band (tiles wholly
-outside a warpgroup's band skipped), the online softmax in float32 in
-base 2 (unscaled scores, the scale folded into the exponent's FMA), P
-split into bf16 hi and lo halves for the two P V products, the
-row sum from the unrounded p, and one rounding of the output to bf16.
-It is held against the JAX package's float32 oracle
-(``repro.kernels.ref.flash_attention_ref``) and, for fully masked rows,
-the Pallas kernel in interpret mode.
+outside a warpgroup's band skipped), the head dim in 64-column chunks
+with its tail past a multiple of 64 zero-filled (S summing the tail's
+16-column k-steps of real columns only), the online softmax in float32
+in base 2 (unscaled scores, the scale folded into the exponent's FMA), P
+split into bf16 hi and lo halves for the two P V products, the row sum
+from the unrounded p, and one rounding of the output to bf16. It is held
+against the JAX package's float32 oracle
+(``repro.kernels.ref.flash_attention_ref``) and the Pallas kernel in
+interpret mode, at D = 16, 48, 80, 96 and 208 (tails of 16, 48, 16, 32
+and 16 columns) beside 128 and 256: MHA and GQA, causal, windowed and
+full, ragged Skv, Sq != Skv.
 
 Tolerance: the bf16 result within one bf16 rounding of the float32 result
 (2^-8 of its size) plus 1e-4, the bound ``chip_smoke.check_flash_f32``
 holds the kernel to on the card. Rounding P once to bf16 instead must
-break that bound: that is why the kernel splits P.
+break that bound: that is why the kernel splits P; so must S without the
+tail's last k-step.
 
 ``_route`` (which of the three kernels a call takes on the card) is a
 pure function of dtype and head dim, tested here too. Inputs are made with numpy from a
 seed.
 """
 import math
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +40,13 @@ from repro_torch.kernels import flash_attention as tfa
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
+SOURCE = (pathlib.Path(tfa.__file__).resolve().parents[1] / "csrc"
+          / "flash_attention_wgmma.cu").read_text()
+# The head dims the kernel has an instance for.
+INSTANCES = [int(x) for x in re.findall(r"REPRO_FLASH_WGMMA\((\d+)\)",
+                                        SOURCE)]
 BQ, WG_ROWS, BK = 128, 64, 64           # the kernel's block and tiles
+CHUNK, K_STEP = 64, 16                  # D columns a chunk and an S k-step
 NEG_INF = -2.3819763e38
 LOG2E = 1.4426950408889634
 BF16_ROUND = 2.0 ** -8
@@ -45,10 +58,26 @@ def _fma(x, scale, mu):
     return (x.double() * scale.double() - mu.double()).float()
 
 
-def emulate(q, k, v, *, causal, window, split=True):
+def s_columns(d: int, drop_tail_step: bool = False) -> torch.Tensor:
+    """The head-dim columns S sums over: every real one (the tail chunk's
+    k-steps cover its real columns, the zeros past D none). With
+    ``drop_tail_step``, the tail's last 16-column k-step left out."""
+    keep = torch.ones(d, dtype=torch.bool)
+    if drop_tail_step:
+        assert d % CHUNK, "no tail"
+        keep[d - K_STEP:] = False
+    return keep
+
+
+def emulate(q, k, v, *, causal, window, split=True, drop_tail_step=False):
     """The tensor-core kernel's arithmetic on bf16 q (B, Sq, H, D), k and v
-    (B, Skv, Hkv, D); bf16 out. ``split`` False rounds P once to bf16."""
+    (B, Skv, Hkv, D); bf16 out. ``split`` False rounds P once to bf16;
+    ``drop_tail_step`` runs S without the tail's last k-step."""
     b, sq, h, d = q.shape
+    assert d in INSTANCES
+    dp = -(-d // CHUNK) * CHUNK        # the padded width of Q and K tiles
+    cols = torch.zeros(dp, dtype=torch.bool)
+    cols[:d] = s_columns(d, drop_tail_step)
     skv, hkv = k.shape[1], k.shape[2]
     group = h // hkv
     scale_log2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) \
@@ -64,9 +93,10 @@ def emulate(q, k, v, *, causal, window, split=True):
                     // BK * BK
                 for qa in (q0, q0 + WG_ROWS):
                     rows = torch.arange(qa, qa + WG_ROWS)
-                    qt = torch.zeros((WG_ROWS, d))
+                    # Q and K tiles dp wide, zero past D (TMA's fill).
+                    qt = torch.zeros((WG_ROWS, dp))
                     n = max(0, min(sq, qa + WG_ROWS) - qa)
-                    qt[:n] = q[bi, qa:qa + n, hi].float()
+                    qt[:n, :d] = q[bi, qa:qa + n, hi].float()
                     m = torch.full((WG_ROWS,), NEG_INF)
                     l = torch.zeros(WG_ROWS)
                     acc = torch.zeros((WG_ROWS, d))
@@ -74,11 +104,13 @@ def emulate(q, k, v, *, causal, window, split=True):
                         if (causal and k0 > qa + WG_ROWS - 1) or (
                                 window > 0 and k0 + BK - 1 <= qa - window):
                             continue            # wholly outside the band
-                        kt = torch.zeros((BK, d))
+                        kt = torch.zeros((BK, dp))
                         vt = torch.zeros((BK, d))
                         nk = min(skv, k0 + BK) - k0
-                        kt[:nk], vt[:nk] = kh[k0:k0 + nk], vh[k0:k0 + nk]
-                        s = qt @ kt.T           # unscaled, as the kernel
+                        kt[:nk, :d] = kh[k0:k0 + nk]
+                        vt[:nk] = vh[k0:k0 + nk]
+                        # Unscaled, as the kernel; its k-steps' columns.
+                        s = qt[:, cols] @ kt[:, cols].T
                         keys = torch.arange(k0, k0 + BK)[None, :]
                         ok = keys < skv
                         if causal:
@@ -121,36 +153,86 @@ def _excess(got, want):
     return float((err - BF16_ROUND * np.abs(want)).max())
 
 
-# (B, S, H, Hkv, D, causal, window): a RecurrentGemma-like layer (GQA 4:1,
-# D = 256, a sliding window) cut to a few hundred positions, and a ragged
-# causal case (no tile multiple) at D = 128.
-CASES = {"recurrentgemma_like": (1, 384, 4, 1, 256, True, 160),
-         "ragged_causal": (1, 300, 4, 2, 128, True, 0)}
+def _pallas(nq, nk, nv, causal, window):
+    """The Pallas kernel in interpret mode, one block over each axis (it
+    needs Sq and Skv to be whole numbers of its blocks)."""
+    tr = lambda a: jnp.asarray(a).transpose(0, 2, 1, 3)  # noqa: E731
+    return np.asarray(flash_attention_hmajor(
+        tr(nq), tr(nk), tr(nv), causal=causal, window=window,
+        block_q=nq.shape[1], block_k=nk.shape[1],
+        interpret=True).transpose(0, 2, 1, 3))
+
+
+# (B, Sq, Skv, H, Hkv, D, causal, window): a RecurrentGemma-like layer
+# (GQA 4:1, D = 256, a sliding window) cut to a few hundred positions, a
+# ragged causal case (no tile multiple) at D = 128, and head dims with a
+# tail past a multiple of 64 (16, 48, 80 = StableLM-3B's, 96, 208), MHA
+# and GQA, causal, windowed and full, Skv ragged and unequal to Sq.
+CASES = {"recurrentgemma_like": (1, 384, 384, 4, 1, 256, True, 160),
+         "ragged_causal": (1, 300, 300, 4, 2, 128, True, 0),
+         "d16_gqa_causal": (1, 130, 130, 4, 2, 16, True, 0),
+         "d48_mha_window_skv_long": (1, 150, 171, 3, 3, 48, True, 40),
+         "d80_mha_causal": (1, 200, 200, 4, 4, 80, True, 0),
+         "d80_gqa_window_ragged": (1, 90, 121, 4, 1, 80, True, 33),
+         "d96_gqa_full_ragged": (2, 70, 90, 4, 2, 96, False, 0),
+         "d208_gqa_window_skv_short": (1, 160, 139, 4, 2, 208, False, 50)}
+# The cases where one rounding of P must show (a few hundred keys).
+ROUNDED_ONCE = ("ragged_causal", "recurrentgemma_like")
 
 
 def _reference(case, rng):
-    b, s, h, hkv, d, causal, window = CASES[case]
-    (q, k, v), (nq, nk, nv) = _qkv(rng, b, s, s, h, hkv, d)
+    b, sq, skv, h, hkv, d, causal, window = CASES[case]
+    (q, k, v), (nq, nk, nv) = _qkv(rng, b, sq, skv, h, hkv, d)
     want = np.asarray(jref.flash_attention_ref(
         jnp.asarray(nq), jnp.asarray(nk), jnp.asarray(nv), causal=causal,
         window=window))
-    return (q, k, v, causal, window), want
+    return (q, k, v, causal, window), want, (nq, nk, nv)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_split_p_within_one_bf16_rounding(rng, case):
-    (q, k, v, causal, window), want = _reference(case, rng)
+    (q, k, v, causal, window), want, _ = _reference(case, rng)
     got = emulate(q, k, v, causal=causal, window=window)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert bool(torch.isfinite(got.float()).all())
     assert _excess(got, want) <= F32_ATTN_TOL
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(c for c in CASES
+                                        if c not in ROUNDED_ONCE))
+def test_tail_within_one_bf16_rounding_of_pallas(rng, case):
+    """The head dims with a tail against the Pallas kernel in interpret
+    mode, on the bf16 inputs' exact float32 values."""
+    (q, k, v, causal, window), _, (nq, nk, nv) = _reference(case, rng)
+    want = _pallas(nq, nk, nv, causal, window)
+    got = emulate(q, k, v, causal=causal, window=window)
+    assert _excess(got, want) <= F32_ATTN_TOL
+
+
+@pytest.mark.parametrize("case", ["d80_mha_causal", "d48_mha_window_skv_long",
+                                  "d208_gqa_window_skv_short"])
+def test_tail_step_dropped_breaks_the_bound(rng, case):
+    """S without the tail's last 16-column k-step (a kernel that ran only
+    the full chunks' steps, at D = 80 and 208) leaves the output beyond
+    the bound."""
+    (q, k, v, causal, window), want, _ = _reference(case, rng)
+    got = emulate(q, k, v, causal=causal, window=window,
+                  drop_tail_step=True)
+    assert _excess(got, want) > F32_ATTN_TOL
+
+
+def test_instances_cover_every_multiple_of_16():
+    """One instance for every bf16 head dim the tc route takes."""
+    assert INSTANCES == list(range(16, tfa.TC_MAX_HEAD_DIM + 1, 16))
+    assert [d for d in range(1, 400) if tfa._route(torch.bfloat16, d)
+            == "tc"] == INSTANCES
+
+
+@pytest.mark.parametrize("case", ROUNDED_ONCE)
 def test_p_rounded_once_breaks_the_bound(rng, case):
     """One rounding of P to bf16 (as FlashAttention-2/3 do) leaves the
     output beyond the bound the split keeps."""
-    (q, k, v, causal, window), want = _reference(case, rng)
+    (q, k, v, causal, window), want, _ = _reference(case, rng)
     once = emulate(q, k, v, causal=causal, window=window, split=False)
     assert _excess(once, want) > F32_ATTN_TOL
 
@@ -174,9 +256,11 @@ def test_fully_masked_rows_give_zero(rng):
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 256, "tc"), (torch.float32, 64, "fma"),
     (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
-    (torch.bfloat16, 80, "mma"),       # StableLM-3B: the mma.sync route
-    (torch.bfloat16, 32, "mma"), (torch.bfloat16, 6, "mma"),
-    (torch.bfloat16, 36, "mma"), (torch.bfloat16, 96, "mma"),
+    (torch.bfloat16, 80, "tc"),        # StableLM-3B: a 16-column tail
+    (torch.bfloat16, 32, "tc"), (torch.bfloat16, 6, "mma"),
+    (torch.bfloat16, 36, "mma"), (torch.bfloat16, 96, "tc"),
+    (torch.bfloat16, 37, "mma"),       # no multiple of 16: mma.sync
+    (torch.bfloat16, 200, "mma"),
     (torch.bfloat16, 320, "fma"),      # over 256: the CUDA-core route
     (torch.float32, 80, "fma")])
 def test_route_by_dtype_and_head_dim(dtype, d, route):

@@ -4,7 +4,8 @@
 Its ``reduced()`` config with ``head_dim`` kept at 80 (2 ``attn`` layers,
 width 64, 4 heads, MHA): ``forward_prefill`` on the kernel route
 (``impl="flash"``: flash attention's plain version on the CPU, the
-mma.sync kernel on the card) and on the reference route, then one greedy
+wgmma kernel on the card, its head dim's 16-column tail zero-filled) and
+on the reference route, then one greedy
 ``forward_decode`` step, each against the reference's model on the
 reference's weights, carried across by ``models.convert``: last-token
 logits and every layer's cache within 1e-4 (float32, a few layers of
@@ -51,9 +52,11 @@ def _close(got, want):
 
 
 def test_full_config_takes_the_mma_route():
+    """The published config's bf16 head dim of 80 takes the wgmma
+    kernel's route (``"tc"``), which the mma.sync route held before."""
     cfg = TARCHS[ARCH]
     assert (cfg.head_dim, cfg.num_heads, cfg.num_kv_heads) == (80, 32, 32)
-    assert tfa._route(torch.bfloat16, cfg.head_dim) == "mma"
+    assert tfa._route(torch.bfloat16, cfg.head_dim) == "tc"
 
 
 @pytest.mark.parametrize("impl", ["flash", "reference"])
