@@ -25,6 +25,8 @@ from repro_torch.configs.registry import ARCHS as TARCHS
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import transformer as ttfm
 from repro_torch.sharding import rules as trules
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 MESHES = {"16x16": (("data", "model"), (16, 16)),
           "2x16x16": (("pod", "data", "model"), (2, 16, 16)),

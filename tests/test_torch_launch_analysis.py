@@ -18,6 +18,8 @@ from repro.launch import hlo_analysis
 from repro_torch.core.shard_map import ring_wire_bytes
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import trace_analysis as ta
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 GROUPS = (2, 4, 16)
 # kind (HLO name): (operand dims, result dims) for group size g.

@@ -43,6 +43,8 @@ from repro_torch.configs.registry import ARCHS
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_mod
 from reference_source import REPO_ROOT
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 # name: (arch, seq, batch, kind, mesh (pod, data, model) or (data,
 # model), config changes): the reference test's multi-pod train cell,

@@ -20,6 +20,8 @@ from repro_torch.bench import h100_roofline
 from repro_torch.launch import hillclimb, report, roofline
 from repro_torch.sharding import rules as shrules
 from reference_source import REPO_ROOT, module_values
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 if str(REPO_ROOT) not in sys.path:
     sys.path.insert(0, str(REPO_ROOT))

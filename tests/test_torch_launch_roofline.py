@@ -19,6 +19,8 @@ from repro.launch import roofline as jroofline
 from repro_torch.configs.base import SHAPES
 from repro_torch.configs.registry import ARCHS
 from repro_torch.launch import inputs, roofline
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 CELLS = [(arch, shape) for arch in sorted(JARCHS) for shape in JSHAPES
          if shape_applicable(JARCHS[arch], JSHAPES[shape])]

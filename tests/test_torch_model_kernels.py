@@ -35,6 +35,8 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import rglru as trglru
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

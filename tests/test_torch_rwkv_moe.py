@@ -40,6 +40,8 @@ from repro_torch.kernels import rwkv6_scan as trs
 from repro_torch.models import common as tcommon
 from repro_torch.models import moe as tmoe
 from repro_torch.models import rwkv6 as trwkv
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -37,6 +37,8 @@ from repro_torch.models import transformer as ttfm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.rwkv6 import RwkvState
 from repro_torch.serve.engine import Request, ServingEngine
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

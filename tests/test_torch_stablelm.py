@@ -27,6 +27,8 @@ from repro_torch.configs.registry import ARCHS as TARCHS
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import convert
 from repro_torch.models import transformer as ttfm
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

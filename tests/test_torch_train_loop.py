@@ -46,6 +46,8 @@ from repro_torch.models import convert
 from repro_torch.train import optimizer as topt
 from repro_torch.train.trainer import Preempted, Trainer, TrainerConfig
 from test_torch_train_model import reference_params
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 ARCH = "internlm2-1.8b"
 

@@ -28,6 +28,8 @@ from repro_torch.configs.registry import ARCHS as TARCHS
 from repro_torch.data import pipeline as tpipe
 from repro_torch.train import grad_compression as tgc
 from repro_torch.train import optimizer as topt
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 SHAPES = {"w": (6, 5), "b": (5,), "e": (3, 4, 2), "s": (7,)}
 

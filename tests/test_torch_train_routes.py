@@ -39,6 +39,8 @@ from repro_torch.models import transformer as ttfm
 from test_torch_serve import _assert_caches_match, _close
 from test_torch_train_model import reference_params, torch_batch, \
     train_batch
+from reference_state import (  # noqa: F401  (autouse fixtures)
+    clean_reference_rules, clean_reference_rules_module)
 
 REL = 1e-4          # the reference's own blocked/chunked tolerance
 PARITY_RTOL = 1e-5  # the same route in both packages
