@@ -1,0 +1,7 @@
+"""Mean milliseconds of the engine's prefill step over the window: host
+clock between two device synchronisations around the step callable."""
+
+
+def read(run):
+    s = [t for b in run.batches for t in b.prefill_s]
+    return 1e3 * sum(s) / len(s) if s else None
