@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.core import shard_map as sm
+from repro_torch.core import tracing
 from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import ref as kref
 from repro_torch.models import mlp as mlp_mod
@@ -75,6 +76,7 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig) -> dict:
 # Routing + dispatch/combine (local token set)
 # ---------------------------------------------------------------------------
 
+@tracing.spanned("moe.route")
 def _route(params, x2d, mo: MoEConfig, norm_topk: bool):
     """x2d: (T, D) -> gates (T, k) fp32, idx (T, k), aux loss scalar."""
     logits = x2d.float() @ params["w_router"].float()
@@ -95,6 +97,7 @@ def _route(params, x2d, mo: MoEConfig, norm_topk: bool):
     return gates, idx, aux
 
 
+@tracing.spanned("moe.dispatch")
 def _dispatch(x2d, gates, idx, capacity: int, num_experts: int):
     """Token-priority capacity dispatch.
 
@@ -116,9 +119,14 @@ def _dispatch(x2d, gates, idx, capacity: int, num_experts: int):
     for j in range(k):   # k is small — k scatter-adds of (T, D)
         contrib = torch.where(keep[:, j, None], x2d, 0)
         xb.index_add_(0, slot[:, j], contrib)
+    if tracing.enabled():
+        tracing.count("moe.assignments", t * k)
+        tracing.count("moe.kept", keep.sum())
+        tracing.count("moe.slots", num_experts * capacity)
     return xb.reshape(num_experts, capacity, -1), slot, keep
 
 
+@tracing.spanned("moe.combine")
 def _combine(yb, slot, keep, gates, out_dtype):
     """Gather expert outputs back to tokens with gate weighting."""
     t, k = slot.shape
@@ -131,6 +139,7 @@ def _combine(yb, slot, keep, gates, out_dtype):
     return out.to(out_dtype)
 
 
+@tracing.spanned("moe.experts")
 def _expert_ffn(params, xb, use_kernel: bool = False):
     """xb: (E, C, D): grouped matmuls over stacked expert weights."""
     if use_kernel:
@@ -181,7 +190,8 @@ def moe_layer(params, x, cfg: ArchConfig, *, mesh=None,
     else:
         y, loss = _single(params, x, cfg, use_kernel)
     if mo.num_shared_experts:
-        y = y + mlp_mod.mlp(params["shared"], x)
+        with tracing.span("moe.shared"):
+            y = y + mlp_mod.mlp(params["shared"], x)
     return y, loss if aux else None
 
 

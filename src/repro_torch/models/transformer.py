@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import shard_map as sm
+from repro_torch.core import tracing
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
@@ -281,24 +282,27 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
     h = rms_norm(x, tp_weight(p["ln1"]), cfg.norm_eps)
     if kind in _ATTENTION_KINDS:
         new_cache = None
-        if mode == "train":
-            a = attn_mod.attention(p["attn"], h, cfg, positions,
-                                   window=window, impl=impl)
-        elif mode == "prefill":
-            a, new_cache = attn_mod.attention_prefill(
-                p["attn"], h, cfg, positions, cache_len=cache_len,
-                window=window, impl=impl)
-        else:
-            a, new_cache = attn_mod.attention_decode(
-                p["attn"], h, cfg, position, cache, window=window)
+        with tracing.span("model.attention"):
+            if mode == "train":
+                a = attn_mod.attention(p["attn"], h, cfg, positions,
+                                       window=window, impl=impl)
+            elif mode == "prefill":
+                a, new_cache = attn_mod.attention_prefill(
+                    p["attn"], h, cfg, positions, cache_len=cache_len,
+                    window=window, impl=impl)
+            else:
+                a, new_cache = attn_mod.attention_decode(
+                    p["attn"], h, cfg, position, cache, window=window)
         x = x + a
         h2 = rms_norm(x, tp_weight(p["ln2"]), cfg.norm_eps)
         if kind == "moe":
-            f, aux = moe_mod.moe_layer(p["ffn"], h2, cfg, mesh=mesh,
-                                       use_kernel=(impl == "flash_moe"),
-                                       aux=(mode == "train"))
+            with tracing.span("model.moe"):
+                f, aux = moe_mod.moe_layer(p["ffn"], h2, cfg, mesh=mesh,
+                                           use_kernel=(impl == "flash_moe"),
+                                           aux=(mode == "train"))
         else:
-            f = mlp_mod.mlp(p["ffn"], h2)
+            with tracing.span("model.mlp"):
+                f = mlp_mod.mlp(p["ffn"], h2)
         return x + f, aux, new_cache
     if kind == "rwkv":
         if mode == "decode":
@@ -514,15 +518,18 @@ def forward_train(model: Model, cfg: ArchConfig, batch: dict, *,
 def forward_prefill(model: Model, cfg: ArchConfig, batch: dict,
                     cache_len: int, *, impl: str = "reference", mesh=None):
     """Returns (last_token_logits (B, V) float32, caches)."""
-    x, positions = _embed_inputs(model, cfg, batch)
+    with tracing.span("model.embed"):
+        x, positions = _embed_inputs(model, cfg, batch)
     caches = []
-    for layer in model.layers:
-        x, _, c = _apply_layer(layer, x, cfg, positions, impl=impl,
-                               mode="prefill", cache_len=cache_len,
-                               mesh=mesh)
-        x = shard(x, ("batch", "seq", "embed"))
+    for i, layer in enumerate(model.layers):
+        with tracing.span("model.block", layer=i):
+            x, _, c = _apply_layer(layer, x, cfg, positions, impl=impl,
+                                   mode="prefill", cache_len=cache_len,
+                                   mesh=mesh)
+            x = shard(x, ("batch", "seq", "embed"))
         caches.append(c)
-    logits = _whole_vocab(_lm_head(model, cfg, x[:, -1:]), cfg)
+    with tracing.span("model.lm_head"):
+        logits = _whole_vocab(_lm_head(model, cfg, x[:, -1:]), cfg)
     return logits[:, 0], caches
 
 
@@ -530,13 +537,16 @@ def forward_decode(model: Model, cfg: ArchConfig, tokens, caches,
                    position: int, *, mesh=None):
     """One decode step. tokens: (B, 1) int; position: int. Returns
     (logits (B, V), new_caches). Attention caches are updated in place."""
-    x = _embed_tokens(model, cfg, tokens).to(cfg.activation_dtype)
-    x = shard(x, ("batch", "seq", "embed"))
+    with tracing.span("model.embed"):
+        x = _embed_tokens(model, cfg, tokens).to(cfg.activation_dtype)
+        x = shard(x, ("batch", "seq", "embed"))
     new_caches = []
-    for layer, c in zip(model.layers, caches):
-        x, _, c = _apply_layer(layer, x, cfg, None, impl="reference",
-                               mode="decode", cache=c, position=position,
-                               mesh=mesh)
+    for i, (layer, c) in enumerate(zip(model.layers, caches)):
+        with tracing.span("model.block", layer=i):
+            x, _, c = _apply_layer(layer, x, cfg, None, impl="reference",
+                                   mode="decode", cache=c,
+                                   position=position, mesh=mesh)
         new_caches.append(c)
-    logits = _whole_vocab(_lm_head(model, cfg, x), cfg)
+    with tracing.span("model.lm_head"):
+        logits = _whole_vocab(_lm_head(model, cfg, x), cfg)
     return logits[:, 0], new_caches

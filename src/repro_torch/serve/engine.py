@@ -37,6 +37,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import pricing
 from repro_torch.core import shard_map as sm
+from repro_torch.core import tracing
 from repro_torch.core.device import resolve_device
 from repro_torch.launch import steps as step_factory
 from repro_torch.models import transformer as tfm
@@ -107,46 +108,59 @@ class ServingEngine:
         return torch.from_numpy(toks).to(self.device)
 
     def serve(self, requests: list[Request]) -> list[Request]:
-        """Process all requests in batches; returns them with completions."""
+        """Process all requests in batches; returns them with completions.
+        A request's ``latency_s`` runs from its batch's start to the
+        moment its last token is on the host (``time.perf_counter``)."""
         done: list[Request] = []
         queue = list(requests)
-        cfg = self.cfg
         while queue:
             batch = queue[: self.batch_size]
             queue = queue[self.batch_size:]
-            t0 = time.time()
-            toks = self._batch_prompts(batch)
-            batch_inputs = {"tokens": toks}
-            if cfg.input_mode == "embeddings":
-                embed = self.model["embed"]
-                if self.mesh is not None:
-                    embed = sm.gather_param(embed, self.mesh)
-                emb = embed[toks]
-                batch_inputs = {"embeds": emb.to(cfg.activation_dtype)}
-                if cfg.rope == "mrope":
-                    s = toks.shape[1]
-                    batch_inputs["mrope_positions"] = torch.arange(
-                        s, dtype=torch.int32, device=self.device)[
-                            None, None].expand(3, toks.shape[0], s)
+            with tracing.span("serve.batch", batch=batch[0].request_id,
+                              size=len(batch)):
+                done += self._serve_batch(batch)
+        return done
+
+    def _serve_batch(self, batch: list[Request]) -> list[Request]:
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        toks = self._batch_prompts(batch)
+        batch_inputs = {"tokens": toks}
+        if cfg.input_mode == "embeddings":
+            embed = self.model["embed"]
+            if self.mesh is not None:
+                embed = sm.gather_param(embed, self.mesh)
+            emb = embed[toks]
+            batch_inputs = {"embeds": emb.to(cfg.activation_dtype)}
+            if cfg.rope == "mrope":
+                s = toks.shape[1]
+                batch_inputs["mrope_positions"] = torch.arange(
+                    s, dtype=torch.int32, device=self.device)[
+                        None, None].expand(3, toks.shape[0], s)
+        with tracing.span("serve.prefill"):
             logits, caches = self.prefill(self.model, batch_inputs)
-            outs = [list() for _ in batch]
-            next_tok = self._next_tokens(logits)
-            max_new = max(r.max_new_tokens for r in batch)
-            pos = self.max_prompt
-            for t in range(max_new):
+        outs = [list() for _ in batch]
+        next_tok = self._next_tokens(logits)
+        max_new = max(r.max_new_tokens for r in batch)
+        pos = self.max_prompt
+        # on_host[n]: seconds from the batch's start until n tokens of
+        # every request are on the host.
+        on_host = [0.0]
+        for t in range(max_new):
+            with tracing.span("serve.readback"):
                 host = next_tok.tolist()
-                for i in range(len(batch)):
-                    outs[i].append(host[i])
+            on_host.append(time.perf_counter() - t0)
+            for i in range(len(batch)):
+                outs[i].append(host[i])
+            with tracing.span("serve.decode"):
                 logits, caches = self.decode(self.model, next_tok[:, None],
                                              caches, pos + t)
-                next_tok = self._next_tokens(logits)
-                self.step_count += 1
-            dt = time.time() - t0
-            for i, r in enumerate(batch):
-                r.completion = np.asarray(outs[i][: r.max_new_tokens])
-                r.latency_s = dt
-                done.append(r)
-        return done
+            next_tok = self._next_tokens(logits)
+            self.step_count += 1
+        for i, r in enumerate(batch):
+            r.completion = np.asarray(outs[i][: r.max_new_tokens])
+            r.latency_s = on_host[r.max_new_tokens]
+        return batch
 
     # ------------------------------------------------------------------
     def cost_report(self, wall_s: float, n_requests: int) -> dict:
