@@ -71,8 +71,9 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    (``impl="flash"``: the RWKV-6 scan once per ``rwkv`` layer and batch, 48
    in all, every one on the tensor-core route), DeepSeekMoE-16B
    (``impl="flash_moe"``: the grouped matmul
-   three times per ``moe`` layer and batch, 162 in all, every one on the
-   tensor-core route; the reference attention) and StableLM-3B
+   three times per ``moe`` layer and batch, 162 in all, and flash
+   attention once per layer and batch, 56 in all, every one on the
+   tensor-core route) and StableLM-3B
    (``impl="flash"``: flash attention once per ``attn`` layer and batch,
    64 in all, every one on the tensor-core route, head dim 80). No other
    model kernel may launch. Each model's first batch's
@@ -321,13 +322,15 @@ SORT_PAD_SHARE = 0.05
 SORT_MODES = ("sum", "min")
 
 # The serving phases, each model at full width and depth: its kernel
-# route, and for each of its kernels the layer kind that launches it and
-# how many times per layer and batch.
+# route, and for each of its kernels the layer kind (or kinds) that
+# launches it and how many times per layer and batch.
 SERVINGS = {
     "recurrentgemma-2b": ("flash", {"flash_attention": ("local", 1),
                                     "rglru_scan": ("rec", 1)}),
     "rwkv6-1.6b": ("flash", {"rwkv6_scan": ("rwkv", 1)}),
-    "deepseek-moe-16b": ("flash_moe", {"gmm": ("moe", 3)}),
+    "deepseek-moe-16b": ("flash_moe", {"gmm": ("moe", 3),
+                                       "flash_attention": (("dense0", "moe"),
+                                                           1)}),
     "stablelm-3b": ("flash", {"flash_attention": ("attn", 1)}),
 }
 SERVE_ARCHS = tuple(SERVINGS)     # a quick call may serve only some
@@ -339,6 +342,9 @@ SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_SEED = 8, 32, 0
 # every head dim of the tensor-core flash kernel.
 INTERNLM2_ATTN = ((1, 4096, 16, 128), 8)
 MUSICGEN_ATTN = ((1, 4096, 24, 64), 24)
+# DeepSeekMoE-16B's attention in 32 prompts of 512 tokens, beside its
+# serve phase's 4 of 4,096.
+DEEPSEEK_512_ATTN = ((32, 512, 16, 128), 16)
 # The domains phase: head dims no served model has, which the Pallas
 # kernels take. Flash attention's CUDA-core route at (B, S, H, Hkv) and
 # each (D, causal, window); the RWKV-6 scan's one-step-at-a-time route at
@@ -1878,7 +1884,7 @@ def run_serving(arch: str):
         max_memory_allocated_gib=peak / 2**30)
     log("serve_launches", arch=arch, **launches, **routes)
     log("serve_cost", arch=arch, **eng.cost_report(wall, len(done)))
-    want = {k: kinds.count(kind) * per * batches
+    want = {k: layers_of(kinds, kind) * per * batches
             for k, (kind, per) in kernels.items()}
     for k, n in want.items():
         if launches[k] == 0 or launches[k] != n:
@@ -1895,6 +1901,13 @@ def run_serving(arch: str):
                                  f"route {route}")
     first = np.asarray([r.completion[0] for r in done[:SERVE_BATCH]])
     return eng, reqs, {**launches, **routes}, first
+
+
+def layers_of(kinds: list, kind) -> int:
+    """How many of the layer ``kinds`` are ``kind`` (a kind or a tuple of
+    them)."""
+    return sum(kinds.count(k) for k in
+               (kind if isinstance(kind, tuple) else (kind,)))
 
 
 def _recorders(arch: str) -> dict:
@@ -2224,7 +2237,13 @@ def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return total
 
 
-def check_flash(recorded, launches):
+def check_flash(recorded, launches,
+                shapes=(("internlm2_shape", INTERNLM2_ATTN),
+                        ("musicgen_shape", MUSICGEN_ATTN))):
+    """Flash attention at the shape the serve phase gave it and at the
+    named model ``shapes`` ((B, S, H, D), Hkv; causal): the tensor-core
+    kernel against its plain version and the float32 result, timed beside
+    its bound, the plain version and ``scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -2238,9 +2257,8 @@ def check_flash(recorded, launches):
                 torch.randn((mb, ms, mhkv, md), **bf16),
                 torch.randn((mb, ms, mhkv, md), **bf16), True, 0)
 
-    cases = [("serve", q, k, v, kw.get("causal", True), kw.get("window", 0)),
-             ("internlm2_shape", *model_shape(INTERNLM2_ATTN)),
-             ("musicgen_shape", *model_shape(MUSICGEN_ATTN))]
+    cases = [("serve", q, k, v, kw.get("causal", True), kw.get("window", 0))]
+    cases += [(name, *model_shape(shape)) for name, shape in shapes]
     rows = []
     for case, q, k, v, causal, window in cases:
         b, sq, h, d = q.shape
@@ -4900,7 +4918,7 @@ def check_dist_tp_serve(res, card) -> dict:
                                      f"cache_shardings' {r['cache_want'][:3]}")
             n = r["launches"]
             for k, (kind, per) in kernels.items():
-                want = kinds.count(kind) * per
+                want = layers_of(kinds, kind) * per
                 if n[k] != want or n[TC_ROUTES[k]] != want:
                     raise AssertionError(f"(d6) {arch} rank {i}: {k} "
                                          f"launched {n[k]} times, "
@@ -5260,7 +5278,8 @@ MODEL_CHECKS = {
     "recurrentgemma-2b": lambda rec, n: check_flash(rec, n)
     + check_rglru(rec, n),
     "rwkv6-1.6b": check_rwkv6,
-    "deepseek-moe-16b": check_gmm,
+    "deepseek-moe-16b": lambda rec, n: check_gmm(rec, n)
+    + check_flash(rec, n, shapes=(("score_512_shape", DEEPSEEK_512_ATTN),)),
     "stablelm-3b": check_flash_stablelm,
 }
 

@@ -1,10 +1,11 @@
 """Causal / sliding-window GQA flash attention for prefill.
 
-Backs ``models.attention`` under ``impl="flash"``: online-softmax
-attention in float32 over KV tiles, with the TPU kernel's finite
-``NEG_INF``, its guard for fully masked rows and its 1e-20 denominator
-floor, so such a row gives 0. Takes the model layout, q (B, Sq, H, D) and
-k, v (B, Skv, Hkv, D), with kv head ``h // (H // Hkv)``; any Sq and Skv.
+Backs ``models.attention`` under ``impl="flash"`` and ``"flash_moe"``:
+online-softmax attention in float32 over KV tiles, with the TPU kernel's
+finite ``NEG_INF``, its guard for fully masked rows and its 1e-20
+denominator floor, so such a row gives 0. Takes the model layout, q (B,
+Sq, H, D) and k, v (B, Skv, Hkv, D), with kv head ``h // (H // Hkv)``;
+any Sq and Skv.
 
 On a CUDA tensor ``flash_attention`` launches one of three hand-written
 kernels, each reading the tensors through their strides, chosen by

@@ -1,8 +1,9 @@
 """Grouped matmul for MoE expert FFNs: ``y[e] = x[e] @ w[e]``.
 
-Backs ``models.moe`` under ``impl="flash_moe"``: x (E, C, D) and
-w (E, D, F) of one dtype (float32 or bfloat16) give y (E, C, F) in x's
-dtype with float32 accumulation, for any C, D and F.
+Backs ``models.moe`` under ``impl="flash_moe"`` (whose attention runs
+``kernels.flash_attention``): x (E, C, D) and w (E, D, F) of one dtype
+(float32 or bfloat16) give y (E, C, F) in x's dtype with float32
+accumulation, for any C, D and F.
 ``moe_grouped_ffn`` is the SiLU-gated expert FFN as three ``gmm`` calls
 (gate, up, down), as the reference's ``ops.moe_grouped_ffn``.
 

@@ -1,6 +1,7 @@
 """GQA attention with RoPE / M-RoPE, optional QKV bias, sliding windows,
-KV-cache prefill and decode, the flash-attention kernel switch and the
-reference's blocked and local stand-ins for it (the port of
+KV-cache prefill and decode, the flash-attention kernel switch (the
+prefill of ``impl="flash"`` and ``"flash_moe"``) and the reference's
+blocked and local stand-ins for it (the port of
 ``repro.models.attention``).
 
 Layouts as in the reference: activations (B, S, D); q/k/v (B, S, H, Dh);
@@ -276,16 +277,18 @@ def _local_sdpa(q, k, v, *, window: int) -> torch.Tensor:
 
 
 def _attend(q, k, v, *, window: int, impl: str):
-    if impl == "flash":
+    # "flash_moe" (the grouped-matmul kernel in the MoE layers) takes the
+    # flash kernel too, where the reference's flash_moe keeps the reference
+    # attention: its float32 scores are 4.3 GB a layer at DeepSeekMoE's
+    # 4 x 4,096 tokens.
+    if impl in ("flash", "flash_moe"):
         return flash_kernel.flash_attention(q, k, v, causal=True,
                                             window=window)
     if impl == "blocked" and window and window <= q.shape[1]:
         return _local_sdpa(q, k, v, window=window)
     if impl == "blocked":
         return _blocked_sdpa(q, k, v, causal=True, window=window)
-    # "flash_moe" selects the grouped-matmul kernel for the MoE layers and
-    # the reference attention, as in the reference.
-    if impl not in ("reference", "flash_moe"):
+    if impl != "reference":
         raise ValueError(f"unknown attention impl {impl!r}")
     return _sdpa(q, k, v, causal=True, window=window)
 

@@ -28,9 +28,10 @@ Positions inside an expert's buffer are assigned in token order by a
 cumulative sum over the flattened (T*k, E) one-hot; slots past the
 capacity drop. Dispatch is k scatter-adds into an (E, C, D) buffer, the
 expert FFN runs on the stacked buffer (``moe_grouped_ffn``'s grouped-
-matmul kernel under ``use_kernel``, the model's ``impl="flash_moe"``;
-``einsum`` otherwise), and the combine gathers back in float32 weighted
-by gate * keep. Shared experts (DeepSeekMoE) run densely beside them,
+matmul kernel under ``use_kernel``, the model's ``impl="flash_moe"``,
+whose attention takes the flash-attention kernel; ``einsum``
+otherwise), and the combine gathers back in float32 weighted by gate *
+keep. Shared experts (DeepSeekMoE) run densely beside them,
 through ``mlp`` (tensor-parallel on ``ff`` where the rules split it);
 the router stays whole on every model rank.
 """

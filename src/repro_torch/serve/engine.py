@@ -59,8 +59,8 @@ class ServingEngine:
 
     ``impl`` selects the prefill route: ``"flash"`` (the default: the
     hand-written attention, RG-LRU and RWKV-6 kernels), ``"flash_moe"``
-    (the grouped-matmul kernel in the MoE layers, the reference attention)
-    or ``"reference"``.
+    (the grouped-matmul kernel in the MoE layers, the flash-attention
+    kernel in every layer's attention) or ``"reference"``.
     Weights are drawn on ``device`` from a ``torch.Generator`` seeded with
     ``seed`` and cast to the config's activation dtype. With ``mesh`` (this
     process one of its ranks) the rank's device takes the place of

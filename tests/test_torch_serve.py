@@ -3,7 +3,7 @@
 ``forward_prefill`` (both routes: ``impl="reference"``, and the kernel
 route with the kernels' plain versions, which is ``impl="flash"`` and,
 for DeepSeekMoE, ``impl="flash_moe"``: the grouped-matmul kernel with the
-reference attention) and eight greedy ``forward_decode`` steps of
+flash-attention kernel) and eight greedy ``forward_decode`` steps of
 ``recurrentgemma-2b``, ``internlm2-1.8b``, ``rwkv6-1.6b`` and
 ``deepseek-moe-16b`` in their ``reduced()`` configs, with the reference's
 weights loaded through ``models.convert``: last-token logits and every
