@@ -62,7 +62,7 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    launches are those of phases 3, 5 and 6 and the paper phase, none of
    which may run the sort route;
 8. serve  — ``ServingEngine`` answers 8 requests of 1,024-4,096 prompt
-   tokens and 32 new tokens each, in two batches of 4, with each of four
+   tokens and 32 new tokens each, in two batches of 4, with each of five
    models at full width and depth (random bf16 weights from a seeded
    ``torch.Generator``): RecurrentGemma-2B (``impl="flash"``: the flash
    attention and RG-LRU kernels launch once per ``local`` / ``rec`` layer
@@ -73,16 +73,24 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    (``impl="flash_moe"``: the grouped matmul
    three times per ``moe`` layer and batch, 162 in all, and flash
    attention once per layer and batch, 56 in all, every one on the
-   tensor-core route) and StableLM-3B
+   tensor-core route), StableLM-3B
    (``impl="flash"``: flash attention once per ``attn`` layer and batch,
-   64 in all, every one on the tensor-core route, head dim 80). No other
-   model kernel may launch. Each model's first batch's
-   prefill is then run again on the reference route (``impl="reference"``)
-   and its last-token logits held against the kernel route's (for
+   64 in all, every one on the tensor-core route, head dim 80) and
+   DeepSeek-V2-Lite (``impl="flash_moe"``, multi-head latent attention:
+   the grouped matmul three times per ``moe`` layer and batch, 156 in
+   all, and flash attention once per layer and batch at D = 192 with the
+   values zero-filled from 128 and the YaRN softmax scale, 54 in all,
+   every one on the tensor-core route; its decode attends over the latent
+   cache in plain ``torch``). No other model kernel may launch. Each
+   model's first batch's prefill is then run again on the reference
+   route (``impl="reference"``) and its last-token logits held against
+   the kernel route's (for
    DeepSeekMoE the top-k expert choices of the two routes are compared
    too); three planted faults show what RecurrentGemma's check can see,
    StableLM's runs again with every flash launch on the CUDA-core kernel
-   (sound) and with the causal mask dropped (a fault);
+   (sound) and with the causal mask dropped (a fault), DeepSeek-V2-Lite's
+   with the flash launches at their default scale (the YaRN mscale
+   dropped, a fault);
    RWKV-6's two routes are also held together with the model widened to
    float32, where two planted faults (decays rounded to bf16, log_w
    doubled) must fail the check; one prefill and one decode step are
@@ -92,6 +100,10 @@ toolkit (``nvcc``). Phases, each printing lines of its numbers:
    (flash attention, bf16 on the tensor-core route, also at InternLM2's and
    MusicGen-medium's shapes, D = 128 and 64, and in float32 on the
    CUDA-core route, where a window edge off by one must show; at
+   DeepSeek-V2-Lite's benchmark shape, (2, 32768, 16, 192) with the
+   values zero-filled from 128 at the YaRN scale, against the plain
+   version a (batch, head) at a time, where the kernel at its default
+   scale must fail the check; at
    StableLM-3B's shape on the tensor-core route, its head dim's 16-column
    tail zero-filled, also timed beside the mma.sync kernel on the same
    inputs (the route D = 80 took before), whose time it must cut to
@@ -332,6 +344,9 @@ SERVINGS = {
                                        "flash_attention": (("dense0", "moe"),
                                                            1)}),
     "stablelm-3b": ("flash", {"flash_attention": ("attn", 1)}),
+    "deepseek-v2-lite": ("flash_moe", {"gmm": ("moe", 3),
+                                       "flash_attention": (("dense0", "moe"),
+                                                           1)}),
 }
 SERVE_ARCHS = tuple(SERVINGS)     # a quick call may serve only some
 SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN = 4, 4096, 4128
@@ -345,6 +360,9 @@ MUSICGEN_ATTN = ((1, 4096, 24, 64), 24)
 # DeepSeekMoE-16B's attention in 32 prompts of 512 tokens, beside its
 # serve phase's 4 of 4,096.
 DEEPSEEK_512_ATTN = ((32, 512, 16, 128), 16)
+# DeepSeek-V2-Lite's prefill attention in its benchmark cell: (B, S, H),
+# queries and keys of 192 dims, values of 128 zero-filled to 192.
+MLA_CELL_ATTN = (2, 32768, 16)
 # The domains phase: head dims no served model has, which the Pallas
 # kernels take. Flash attention's CUDA-core route at (B, S, H, Hkv) and
 # each (D, causal, window); the RWKV-6 scan's one-step-at-a-time route at
@@ -366,7 +384,8 @@ RWKV_DOMAINS = ((4, 4096, 16, 128, 128), (4, 4096, 16, 128, 160))
 # model measured on an H100 (reasons and readings in PERF.md). For an MoE
 # model the routes are held to the same expert choices.
 LOGIT_TOL = {"recurrentgemma-2b": 0.35, "rwkv6-1.6b": 2.4,
-             "deepseek-moe-16b": 1.5, "stablelm-3b": 0.26}
+             "deepseek-moe-16b": 1.5, "stablelm-3b": 0.26,
+             "deepseek-v2-lite": 2.1}
 # RWKV-6's routes also run with the model widened to float32, where they
 # differ by float32 rounding alone: 2.5 times the largest difference
 # between two sound float32 routes measured on an H100 (PERF.md). The
@@ -2129,9 +2148,11 @@ def log_controls(eng, toks, kern_logits, ref_logits, experts=None,
     the CUDA-core kernel (sound), and the causal mask dropped. RWKV-6: the
     reference route with
     32-step chunks (sound), the scan's decays rounded to bf16, log_w
-    doubled. DeepSeekMoE: the flash-attention route (sound), and expert
-    0's output of every grouped matmul zeroed, each also with the kernel
-    route's expert choices (``experts``) replayed."""
+    doubled. DeepSeekMoE and DeepSeek-V2-Lite: the flash-attention route
+    (sound), and expert 0's output of every grouped matmul zeroed, each
+    also with the kernel route's expert choices (``experts``) replayed;
+    DeepSeek-V2-Lite also the flash launches at their default scale (the
+    YaRN mscale dropped), on those expert choices."""
     import dataclasses
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -2166,7 +2187,7 @@ def log_controls(eng, toks, kern_logits, ref_logits, experts=None,
         with replaced(rs, "rwkv6_scan", lambda f: lambda r, k, v, lw, u, s0,
                       **kw: f(r, k, v, 2 * lw, u, s0, **kw)):
             out["log_w_doubled"] = prefill()
-    elif cfg.name == "deepseek-moe-16b":
+    elif cfg.name in ("deepseek-moe-16b", "deepseek-v2-lite"):
         out["sound_flash_attention_route"] = prefill(impl="flash")
         out["sound_flash_attention_route_same_experts"] = prefill(
             impl="flash", replay=experts)
@@ -2180,6 +2201,11 @@ def log_controls(eng, toks, kern_logits, ref_logits, experts=None,
         with replaced(mg, "gmm", zero_expert_0):
             out["expert_0_zeroed"] = prefill()
             out["expert_0_zeroed_same_experts"] = prefill(replay=experts)
+        if cfg.name == "deepseek-v2-lite":
+            with replaced(fa, "flash_attention", lambda f: lambda q, k, v,
+                          **kw: f(q, k, v, **{**kw, "scale": None})):
+                out["yarn_mscale_dropped_same_experts"] = prefill(
+                    replay=experts)
     readings = {name: {"vs_reference": float((x - ref_logits).abs().max()),
                        "vs_kernel_route": float((x - kern_logits).abs().max())}
                 for name, x in out.items()}
@@ -2240,10 +2266,11 @@ def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
 def check_flash(recorded, launches,
                 shapes=(("internlm2_shape", INTERNLM2_ATTN),
                         ("musicgen_shape", MUSICGEN_ATTN))):
-    """Flash attention at the shape the serve phase gave it and at the
-    named model ``shapes`` ((B, S, H, D), Hkv; causal): the tensor-core
-    kernel against its plain version and the float32 result, timed beside
-    its bound, the plain version and ``scaled_dot_product_attention``."""
+    """Flash attention at the shape (and softmax scale) the serve phase
+    gave it and at the named model ``shapes`` ((B, S, H, D), Hkv; causal):
+    the tensor-core kernel against its plain version and the float32
+    result, timed beside its bound, the plain version and
+    ``scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -2257,26 +2284,27 @@ def check_flash(recorded, launches,
                 torch.randn((mb, ms, mhkv, md), **bf16),
                 torch.randn((mb, ms, mhkv, md), **bf16), True, 0)
 
-    cases = [("serve", q, k, v, kw.get("causal", True), kw.get("window", 0))]
-    cases += [(name, *model_shape(shape)) for name, shape in shapes]
+    cases = [("serve", q, k, v, kw.get("causal", True), kw.get("window", 0),
+              kw.get("scale"))]
+    cases += [(name, *model_shape(shape), None) for name, shape in shapes]
     rows = []
-    for case, q, k, v, causal, window in cases:
+    for case, q, k, v, causal, window, scale in cases:
         b, sq, h, d = q.shape
         skv = k.shape[1]
         kern = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa: E731
-                                          window=window)
+                                          window=window, scale=scale)
         plain = lambda: fa.flash_attention_plain(  # noqa: E731
-            q, k, v, causal=causal, window=window)
+            q, k, v, causal=causal, window=window, scale=scale)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if window:
             qp = torch.arange(sq, device=DEVICE)[:, None]
             kp = torch.arange(skv, device=DEVICE)[None, :]
             band = (kp <= qp) & (kp > qp - window)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=band, enable_gqa=True)
+                qt, kt, vt, attn_mask=band, enable_gqa=True, scale=scale)
         else:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
+                qt, kt, vt, is_causal=causal, enable_gqa=True, scale=scale)
         tc0 = fa.FLASH_ATTENTION_TC_LAUNCHES
         got = kern()
         if fa.FLASH_ATTENTION_TC_LAUNCHES != tc0 + 1:
@@ -2287,7 +2315,7 @@ def check_flash(recorded, launches,
         err = within(got, want, BF16_TOL)
         lib_err = float((lib().transpose(1, 2).float()
                          - want.float()).abs().max())
-        tight = check_flash_f32(q, k, v, got, causal, window)
+        tight = check_flash_f32(q, k, v, got, causal, window, scale)
         pairs = band_pairs(sq, skv, causal, window)
         flops = 4.0 * b * h * d * pairs
         nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) \
@@ -2302,7 +2330,7 @@ def check_flash(recorded, launches,
                **kernel_times(kern, plain, lib)}
         log("kernel" if case == "serve" else "kernel_sweep", **row,
             case=case, shape=[b, sq, h, d], kv_heads=k.shape[2],
-            causal=causal, window=window, band_pairs=pairs,
+            causal=causal, window=window, scale=scale, band_pairs=pairs,
             flops=flops, bytes=nbytes, library_max_abs_err=lib_err,
             kernel_route=fa._route(q.dtype, d),
             tflops_per_s=flops / row["ms"] / 1e9, **tight)
@@ -2311,7 +2339,7 @@ def check_flash(recorded, launches,
     return rows
 
 
-def check_flash_f32(q, k, v, got, causal, window) -> dict:
+def check_flash_f32(q, k, v, got, causal, window, scale=None) -> dict:
     """The kernel in float32 on q, k, v widened (exactly) to float32,
     against the plain version in float32, and the bf16 result ``got``
     against that float32 result; for a window, what the same comparison
@@ -2319,8 +2347,10 @@ def check_flash_f32(q, k, v, got, causal, window) -> dict:
     import torch
     from repro_torch.kernels import flash_attention as fa
     qf, kf, vf = q.float(), k.float(), v.float()
-    want = fa.flash_attention_plain(qf, kf, vf, causal=causal, window=window)
-    f32 = fa.flash_attention(qf, kf, vf, causal=causal, window=window)
+    want = fa.flash_attention_plain(qf, kf, vf, causal=causal, window=window,
+                                    scale=scale)
+    f32 = fa.flash_attention(qf, kf, vf, causal=causal, window=window,
+                             scale=scale)
     f32_err = float((f32 - want).abs().max())
     del f32
     err = (got.float() - want).abs()
@@ -2333,7 +2363,7 @@ def check_flash_f32(q, k, v, got, causal, window) -> dict:
            "output_rms": float(want.square().mean().sqrt())}
     if window:
         off = fa.flash_attention_plain(qf, kf, vf, causal=causal,
-                                       window=window + 1)
+                                       window=window + 1, scale=scale)
         out["control_window_plus_one_max_abs_diff"] = float(
             (off - want).abs().max())
         del off
@@ -2341,6 +2371,87 @@ def check_flash_f32(q, k, v, got, causal, window) -> dict:
     if not (f32_err <= F32_ATTN_TOL and bf16_excess <= F32_ATTN_TOL):
         raise AssertionError(f"flash attention against float32: {out}")
     return out
+
+
+def check_flash_mla_cell(launches) -> list:
+    """Flash attention at DeepSeek-V2-Lite's benchmark shape
+    (``MLA_CELL_ATTN``: q and k of 192 dims, v of 128 zero-filled to 192,
+    causal, the YaRN softmax scale ``mla.softmax_scale``), on seeded bf16
+    inputs: one launch on the tensor-core route, the output's zero-filled
+    columns exactly 0, and its first 128 columns against the plain version
+    on q, k and the 128 value columns within BF16_TOL, one (batch, head)
+    at a time so the plain version's float32 scores fit. The planted fault,
+    the kernel at its default 1/sqrt(192) (the YaRN mscale dropped), must
+    fail that check. Timed beside its bound, which counts the useful
+    widths (192 for q k^T, 128 for P v) as ``mla_flash_roofline`` does."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import mla
+    cfg = ARCHS["deepseek-v2-lite"]
+    b, s, h = MLA_CELL_ATTN
+    dqk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    dv = cfg.v_head_dim
+    scale = mla.softmax_scale(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    q, k = (torch.randn((b, s, h, dqk), dtype=torch.bfloat16, device=DEVICE,
+                        generator=gen) for _ in range(2))
+    v = torch.zeros((b, s, h, dqk), dtype=torch.bfloat16, device=DEVICE)
+    v[..., :dv] = torch.randn((b, s, h, dv), dtype=torch.bfloat16,
+                              device=DEVICE, generator=gen)
+    kern = lambda sc=scale: fa.flash_attention(  # noqa: E731
+        q, k, v, causal=True, scale=sc)
+    tc0 = fa.FLASH_ATTENTION_TC_LAUNCHES
+    got = kern()
+    torch.cuda.synchronize()
+    if fa.FLASH_ATTENTION_TC_LAUNCHES != tc0 + 1:
+        raise AssertionError(f"flash attention at D = {dqk}: not one launch "
+                             "on the tensor-core route")
+    if got[..., dv:].any():
+        raise AssertionError("flash attention: the zero-filled value "
+                             "columns gave a nonzero output")
+    unscaled = kern(None)
+    err, rms, planted = 0.0, 0.0, 0.0
+    for bi in range(b):
+        for hi in range(h):
+            sl = (slice(bi, bi + 1), slice(None), slice(hi, hi + 1))
+            want = fa.flash_attention_plain(q[sl], k[sl], v[sl][..., :dv],
+                                            causal=True, scale=scale)
+            err = max(err, within(got[sl][..., :dv], want, BF16_TOL))
+            rms = max(rms, float(want.float().square().mean().sqrt()))
+            if bi == hi == 0:
+                planted = float((unscaled[sl][..., :dv].float()
+                                 - want.float()).abs().max())
+                try:
+                    within(unscaled[sl][..., :dv], want, BF16_TOL)
+                except AssertionError:
+                    pass
+                else:
+                    raise AssertionError(
+                        f"flash attention at D = {dqk}: the planted fault "
+                        "(the YaRN mscale dropped) passed the check")
+            del want
+    del unscaled
+    torch.cuda.empty_cache()
+    pairs = b * h * s * (s + 1) // 2
+    flops = 2.0 * (dqk + dv) * pairs
+    nbytes = 2 * b * s * h * (2 * dqk + 2 * dv)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, bound_ms(nbytes)
+    per = time_spread(kern, batches=3)
+    ms = per[len(per) // 2]
+    log("kernel_sweep", name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_wgmma.cu",
+        case="deepseek_v2_lite_cell_shape", shape=[b, s, h, dqk],
+        value_dim=dv, causal=True, scale=scale,
+        launches=launches["flash_attention"], max_abs_err=err,
+        output_rms_max=rms, planted_mscale_dropped_max_abs_err=planted,
+        tolerance=BF16_TOL, useful_flops=flops, useful_bytes=nbytes,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes", ms=ms,
+        ms_min=per[0], ms_max=per[-1],
+        share_of_bound=max(t_ops, t_bytes) / ms,
+        kernel_route=fa._route(q.dtype, dqk))
+    return []
 
 
 def check_flash_stablelm(recorded, launches):
@@ -5281,6 +5392,8 @@ MODEL_CHECKS = {
     "deepseek-moe-16b": lambda rec, n: check_gmm(rec, n)
     + check_flash(rec, n, shapes=(("score_512_shape", DEEPSEEK_512_ATTN),)),
     "stablelm-3b": check_flash_stablelm,
+    "deepseek-v2-lite": lambda rec, n: check_gmm(rec, n)
+    + check_flash(rec, n, shapes=()) + check_flash_mla_cell(n),
 }
 
 

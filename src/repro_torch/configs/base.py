@@ -65,6 +65,26 @@ class ArchConfig:
     input_mode: str = "tokens"       # tokens|embeddings (modality stubs)
     needs_mrope_positions: bool = False
     tie_embeddings: bool = False
+    # Multi-head latent attention (DeepSeek-V2), on where kv_lora_rank > 0:
+    # keys and values decompressed per head from a normed latent of
+    # kv_lora_rank, each head's query and key split into a part without
+    # rotary (qk_nope_head_dim) and one with it (qk_rope_head_dim; the
+    # key's shared by every head), values of v_head_dim.
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # Rotary frequencies: "none" (plain) or "yarn" (YaRN, arXiv:2309.00071,
+    # as DeepSeek-V2 sets it: rope_factor over rope_original_max positions,
+    # the ramp between beta_fast and beta_slow rotations, and the softmax
+    # scale times mscale(rope_factor, yarn_mscale_all_dim) squared).
+    rope_scaling: str = "none"
+    rope_factor: float = 1.0
+    rope_original_max: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
     dtype: str = "bfloat16"
     # Training-shape execution knobs (overridable by perf configs).
     microbatches: int = 1            # gradient-accumulation steps
@@ -74,6 +94,11 @@ class ArchConfig:
     @property
     def activation_dtype(self):
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    @property
+    def mla(self) -> bool:
+        """Whether attention is multi-head latent attention."""
+        return self.kv_lora_rank > 0
 
     @property
     def attention_free(self) -> bool:
@@ -116,6 +141,9 @@ class ArchConfig:
                 lru_width=64 if self.recurrent.lru_width else 0)
         if self.window:
             changes["window"] = 16
+        if self.mla:
+            changes.update(kv_lora_rank=32, qk_nope_head_dim=16,
+                           qk_rope_head_dim=8, v_head_dim=16, head_dim=24)
         return dataclasses.replace(self, **changes)
 
 

@@ -127,7 +127,8 @@ def _lib(route: str):
     return lib
 
 
-def _flash_cuda(q, k, v, causal: bool, window: int, route=None):
+def _flash_cuda(q, k, v, causal: bool, window: int, route=None,
+                scale=None):
     """One launch of the kernel of ``_route`` (``route`` names another
     kernel that takes the inputs, to time it beside its successor)."""
     global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_TC_LAUNCHES, \
@@ -159,6 +160,8 @@ def _flash_cuda(q, k, v, causal: bool, window: int, route=None):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
     if sq == 0 or b == 0:
         return out
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     st = (ctypes.c_int64 * 12)(*strides)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st)
@@ -166,15 +169,15 @@ def _flash_cuda(q, k, v, causal: bool, window: int, route=None):
         if route == "tc":
             rc = _lib(route).repro_flash_attention_wgmma(
                 *ptrs, b, sq, skv, h, hkv, d, int(causal), int(window),
-                1.0 / math.sqrt(d), stream)
+                scale, stream)
         elif route == "mma":
             rc = _lib(route).repro_flash_attention_mma(
                 *ptrs, b, sq, skv, h, h // hkv, d, int(causal), int(window),
-                1.0 / math.sqrt(d), _copy_bytes(d, (q, k, v)), stream)
+                scale, _copy_bytes(d, (q, k, v)), stream)
         else:
             rc = _lib(route).repro_flash_attention(
                 *ptrs, b, sq, skv, h, h // hkv, d, int(causal), int(window),
-                1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
+                scale, _DTYPES[q.dtype], stream)
     kbuild.check(rc, f"flash_attention ({route} route)")
     FLASH_ATTENTION_LAUNCHES += 1
     FLASH_ATTENTION_TC_LAUNCHES += int(route == "tc")
@@ -182,14 +185,17 @@ def _flash_cuda(q, k, v, causal: bool, window: int, route=None):
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None):
     """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, H, D) in q's
     dtype. ``window`` > 0 limits each query to the ``window`` keys ending
-    at its own position."""
+    at its own position; ``scale`` multiplies the scores (1/sqrt(D) by
+    default)."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device.type}")
-    return _flash_cuda(q, k, v, causal, window)
+    return _flash_cuda(q, k, v, causal, window, scale=scale)

@@ -14,15 +14,17 @@ import torch
 NEG_INF = -2.3819763e38
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, H, D)."""
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale=None):
+    """q: (B, Sq, H, D); k: (B, Skv, Hkv, D), v: (B, Skv, Hkv, Dv) -> (B,
+    Sq, H, Dv); ``scale`` multiplies the scores (1/sqrt(D) by default)."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     kk = k.repeat_interleave(g, dim=2)                 # (B, Skv, H, D)
     vv = v.repeat_interleave(g, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                          kk.float()) / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float())
+    logits = logits / math.sqrt(d) if scale is None else logits * scale
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)

@@ -72,7 +72,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import SHAPES, ShapeConfig, shape_applicable
-from repro_torch.configs.registry import ARCHS, get_arch
+from repro_torch.configs.registry import ASSIGNED, get_arch
 from repro_torch.core.device import resolve_device
 from repro_torch.launch import inputs, roofline, steps
 from repro_torch.launch import mesh as mesh_mod
@@ -453,7 +453,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cells = []
-    archs = list(ARCHS) if (args.all or not args.arch) else [args.arch]
+    archs = list(ASSIGNED) if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
     pods = [False, True] if args.both else [args.multi_pod]
     for arch in archs:

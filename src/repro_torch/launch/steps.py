@@ -33,6 +33,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import KVCache
+from repro_torch.models.mla import MLACache
 from repro_torch.models.rglru import RglruState
 from repro_torch.models.rwkv6 import RwkvState
 from repro_torch.sharding import rules as shrules
@@ -110,7 +111,8 @@ def cache_shardings(caches: list, mesh,
     place them under ``act_rules`` (``rules.activation_rules(mesh)`` by
     default): the batch over the axes the decode step splits it on; the
     KV heads over ``"model"`` where they divide, else the slots where
-    they divide (``attention.cache_split``); the RWKV heads
+    they divide (``attention.cache_split``); a latent cache (``MLACache``)
+    whole but for the batch; the RWKV heads
     (``heads``) and the RG-LRU width (``ff``) over ``"model"`` where the
     rules split them. Under the reference's ``ACT_RULES`` this is the
     reference's ``cache_shardings``; ``local_shape`` gives a rank's
@@ -131,6 +133,8 @@ def cache_shardings(caches: list, mesh,
             spec = (dp, "model" if how == "seq" else None,
                     "model" if how == "kv" else None, None)
             return KVCache(spec, spec, ())
+        if isinstance(node, MLACache):
+            return MLACache((dp, None, None), (dp, None, None), ())
         if isinstance(node, RwkvState):
             hs = on_model("heads", node.wkv.shape[1], split)
             return RwkvState((dp, hs, None, None), (dp, None), (dp, None))

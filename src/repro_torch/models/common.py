@@ -334,5 +334,78 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
     return _rotate(x, angles[..., None, :])
 
 
+# ---------------------------------------------------------------------------
+# YaRN (arXiv:2309.00071), as DeepSeek-V2's modeling code computes it
+# ---------------------------------------------------------------------------
+
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """0.1 mscale ln(factor) + 1 (1 at a factor of 1 or less)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_dim(rotations: float, dim: int, theta: float, max_pos: int):
+    """The rotary pair index whose wavelength fits ``rotations`` turns in
+    ``max_pos`` positions."""
+    return dim * math.log(max_pos / (rotations * 2 * math.pi)) \
+        / (2 * math.log(theta))
+
+
+def yarn_freqs(dim: int, theta: float, factor: float, max_pos: int,
+               beta_fast: float, beta_slow: float,
+               device=None) -> torch.Tensor:
+    """(dim/2,) inverse frequencies: the plain ones for the pairs that turn
+    more than ``beta_fast`` times in ``max_pos`` positions, those divided
+    by ``factor`` for the pairs that turn fewer than ``beta_slow`` times,
+    and a linear ramp between; in float32, operation for operation as the
+    published modeling code computes them."""
+    powers = theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                    device=device) / dim)
+    extra, inter = 1.0 / powers, 1.0 / (factor * powers)
+    low = max(math.floor(_yarn_dim(beta_fast, dim, theta, max_pos)), 0)
+    high = min(math.ceil(_yarn_dim(beta_slow, dim, theta, max_pos)),
+               dim - 1)
+    if low == high:
+        high += 0.001
+    mask = 1.0 - ((torch.arange(dim // 2, dtype=torch.float32,
+                                device=device) - low)
+                  / (high - low)).clamp(0, 1)
+    return inter * (1 - mask) + extra * mask
+
+
+def rotary_freqs(cfg, dim: int, device=None) -> torch.Tensor:
+    """The config's inverse frequencies for ``dim`` rotary dims."""
+    if cfg.rope_scaling == "yarn":
+        return yarn_freqs(dim, cfg.rope_theta, cfg.rope_factor,
+                          cfg.rope_original_max, cfg.yarn_beta_fast,
+                          cfg.yarn_beta_slow, device)
+    if cfg.rope_scaling != "none":
+        raise ValueError(f"unknown rope_scaling {cfg.rope_scaling!r}")
+    return rope_freqs(dim, cfg.rope_theta, device)
+
+
+def rotary_mscale(cfg) -> float:
+    """The factor on cos and sin: mscale over mscale_all_dim (1 where they
+    are equal, as in DeepSeek-V2)."""
+    if cfg.rope_scaling != "yarn":
+        return 1.0
+    return yarn_mscale(cfg.rope_factor, cfg.yarn_mscale) / \
+        yarn_mscale(cfg.rope_factor, cfg.yarn_mscale_all_dim)
+
+
+def apply_rope_pairs(x: torch.Tensor, positions: torch.Tensor, cfg
+                     ) -> torch.Tensor:
+    """Rotary over adjacent pairs (dims 2i, 2i + 1), the layout of
+    DeepSeek-V2's published weights, at the config's frequencies; the
+    output in split-halves order (dims 2i to i, 2i + 1 to i + D/2), as its
+    modeling code leaves it. x: (..., S, H, D); positions: broadcastable
+    to (..., S)."""
+    d = x.shape[-1]
+    x = x.unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2)
+    angles = positions[..., None].float() * rotary_freqs(cfg, d, x.device)
+    out = _rotate(x, angles[..., None, :])
+    mscale = rotary_mscale(cfg)
+    return out if mscale == 1.0 else (out.float() * mscale).to(x.dtype)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)

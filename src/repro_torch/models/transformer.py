@@ -8,12 +8,14 @@ weight converter, which unstacks the reference's segments into it.
 
 Entry points: ``forward_train`` (loss), ``forward_prefill`` (last-token
 logits + caches) and ``forward_decode`` (one-token step); caches are a
-list with one entry per layer (``KVCache``, ``RwkvState`` or
-``RglruState``). Each takes a ``mesh``: then the model's parameters are
-DTensors placed by ``sharding.rules`` (``init_model(mesh=...)``,
-``convert.from_reference(mesh=...)``), the batch and the caches are the
-rank's rows, and the layers run the reference's activation tensor
-parallelism on ``"model"`` as the step's installed act rules place it
+list with one entry per layer (``KVCache``, or ``MLACache`` where
+``cfg.kv_lora_rank`` makes attention latent (``models.mla``),
+``RwkvState`` or ``RglruState``). Each takes a ``mesh``: then the
+model's parameters are DTensors placed by ``sharding.rules``
+(``init_model(mesh=...)``, ``convert.from_reference(mesh=...)``), the
+batch and the caches are the rank's rows, and the layers run the
+reference's activation tensor parallelism on ``"model"`` as the step's
+installed act rules place it
 (``common.model_split``): attention heads, the FFN's and the RG-LRU's
 width, RWKV heads and the vocabulary split over the model ranks, each
 weight fetched where it is used (``common.tp_weight``: the rank's slice,
@@ -51,6 +53,7 @@ from repro_torch.core import shard_map as sm
 from repro_torch.core import tracing
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -142,7 +145,8 @@ class Model(nn.Module):
 def _init_sublayer(gen, kind: str, cfg: ArchConfig) -> dict:
     p: dict[str, Any] = {"ln1": ones_init(gen, (cfg.d_model,), ("embed",))}
     if kind in _ATTENTION_KINDS:
-        p["attn"] = attn_mod.init_attention(gen, cfg)
+        p["attn"] = mla_mod.init_mla(gen, cfg) if cfg.mla \
+            else attn_mod.init_attention(gen, cfg)
         p["ln2"] = ones_init(gen, (cfg.d_model,), ("embed",))
         if kind == "moe":
             p["ffn"] = moe_mod.init_moe(gen, cfg)
@@ -283,7 +287,11 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
     if kind in _ATTENTION_KINDS:
         new_cache = None
         with tracing.span("model.attention"):
-            if mode == "train":
+            if cfg.mla:
+                a, new_cache = _mla(p["attn"], h, cfg, positions, impl=impl,
+                                    mode=mode, cache=cache,
+                                    cache_len=cache_len, position=position)
+            elif mode == "train":
                 a = attn_mod.attention(p["attn"], h, cfg, positions,
                                        window=window, impl=impl)
             elif mode == "prefill":
@@ -332,6 +340,18 @@ def _apply_layer(p: Layer, x, cfg: ArchConfig, positions, *, impl: str,
         None if mode == "train" else new_cache
 
 
+def _mla(params, h, cfg: ArchConfig, positions, *, impl: str, mode: str,
+         cache, cache_len: int, position):
+    """Latent attention of one layer: (output, new cache or None)."""
+    if mode == "train":
+        return mla_mod.mla_attention(params, h, cfg, positions,
+                                     impl=impl), None
+    if mode == "prefill":
+        return mla_mod.mla_prefill(params, h, cfg, positions,
+                                   cache_len=cache_len, impl=impl)
+    return mla_mod.mla_decode(params, h, cfg, position, cache)
+
+
 # ---------------------------------------------------------------------------
 # Cache init
 # ---------------------------------------------------------------------------
@@ -345,7 +365,13 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
     caches = []
     for kind in layer_kinds(cfg):
         check_kind(kind)
-        if kind in _ATTENTION_KINDS:
+        if kind in _ATTENTION_KINDS and cfg.mla:
+            caches.append(mla_mod.MLACache(
+                torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                            dtype=dtype, device=device),
+                torch.zeros((batch, cache_len, cfg.qk_rope_head_dim),
+                            dtype=dtype, device=device), 0))
+        elif kind in _ATTENTION_KINDS:
             size = min(cfg.window, cache_len) if kind == "local" \
                 else cache_len
             shape = (batch, size, cfg.num_kv_heads, hd)

@@ -69,10 +69,13 @@ def s_columns(d: int, drop_tail_step: bool = False) -> torch.Tensor:
     return keep
 
 
-def emulate(q, k, v, *, causal, window, split=True, drop_tail_step=False):
+def emulate(q, k, v, *, causal, window, split=True, drop_tail_step=False,
+            scale=None):
     """The tensor-core kernel's arithmetic on bf16 q (B, Sq, H, D), k and v
     (B, Skv, Hkv, D); bf16 out. ``split`` False rounds P once to bf16;
-    ``drop_tail_step`` runs S without the tail's last k-step."""
+    ``drop_tail_step`` runs S without the tail's last k-step; ``scale``
+    multiplies the scores (1/sqrt(D) by default), rounded to float32 and
+    times log2(e) in float32 as the kernel's host wrapper does."""
     b, sq, h, d = q.shape
     assert d in INSTANCES
     dp = -(-d // CHUNK) * CHUNK        # the padded width of Q and K tiles
@@ -80,7 +83,8 @@ def emulate(q, k, v, *, causal, window, split=True, drop_tail_step=False):
     cols[:d] = s_columns(d, drop_tail_step)
     skv, hkv = k.shape[1], k.shape[2]
     group = h // hkv
-    scale_log2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) \
+    scale_log2 = torch.tensor(1.0 / math.sqrt(d) if scale is None
+                              else scale, dtype=torch.float32) \
         * torch.tensor(LOG2E, dtype=torch.float32)
     out = torch.zeros((b, sq, h, d), dtype=torch.bfloat16)
     for bi in range(b):
@@ -219,6 +223,29 @@ def test_tail_step_dropped_breaks_the_bound(rng, case):
     got = emulate(q, k, v, causal=causal, window=window,
                   drop_tail_step=True)
     assert _excess(got, want) > F32_ATTN_TOL
+
+
+def test_mla_shape_with_its_scale_and_zero_filled_values(rng):
+    """DeepSeek-V2-Lite's prefill launch cut to 160 positions and 4
+    heads: q and k of 192 dims, v of 128 zero-filled to 192, the YaRN
+    softmax scale. Within one bf16 rounding of the float32 oracle (run on
+    q times scale * sqrt(192), which its 1/sqrt(192) turns into the
+    scale); the zero-filled columns exactly 0; the default scale (the
+    YaRN mscale dropped) beyond the bound."""
+    from repro_torch.models import mla
+    from repro_torch.configs.registry import ARCHS
+    scale = mla.softmax_scale(ARCHS["deepseek-v2-lite"])
+    (q, k, v), (nq, nk, nv) = _qkv(rng, 1, 160, 160, 4, 4, 192)
+    v[..., 128:] = 0
+    nv = v.float().numpy()
+    want = np.asarray(jref.flash_attention_ref(
+        jnp.asarray(nq * np.float32(scale * math.sqrt(192))),
+        jnp.asarray(nk), jnp.asarray(nv), causal=True))
+    got = emulate(q, k, v, causal=True, window=0, scale=scale)
+    assert not got[..., 128:].float().any()
+    assert _excess(got, want) <= F32_ATTN_TOL
+    unscaled = emulate(q, k, v, causal=True, window=0)
+    assert _excess(unscaled, want) > F32_ATTN_TOL
 
 
 def test_instances_cover_every_multiple_of_16():
